@@ -1,0 +1,68 @@
+"""Parameter creation and grouping (counterpart of ``init_context`` and
+``split_params`` in ``ctgan_tpu/core/store.py``).
+
+Parameters are a flat ``name -> array`` dict under the JAX package's names
+(``Generator.1.Conv1.Filters``).  :class:`ParamInit` creates them in the
+JAX layout (HWIO filters, ``[in, out]`` linear weights) with NumPy, drawing
+from ``np.random.default_rng(seed)`` in the order the JAX model creates
+them, so one seed gives the same weights in both packages.
+``ctgan_tpu_torch.bridge.from_jax_params`` then converts them to tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping
+
+import numpy as np
+
+from ..ops.init import conv_filter_stdev, linear_initializer, uniform_stdev
+
+__all__ = ["ParamInit", "split_params", "param_count"]
+
+
+class ParamInit:
+    """Creates each named parameter once, in call order."""
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        self.params: dict[str, np.ndarray] = {}
+
+    def add(self, name: str, make: Callable[[], np.ndarray]) -> None:
+        if name not in self.params:
+            self.params[name] = np.asarray(make(), dtype="float32")
+
+    def conv(self, name: str, input_dim: int, output_dim: int, filter_size: int,
+             *, he_init: bool = True) -> None:
+        stdev = conv_filter_stdev(input_dim, output_dim, filter_size, 1, he_init)
+        self.add(name + ".Filters", lambda: uniform_stdev(
+            self.rng, stdev, (filter_size, filter_size, input_dim, output_dim)))
+        self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
+
+    def linear(self, name: str, input_dim: int, output_dim: int) -> None:
+        self.add(name + ".W", lambda: linear_initializer(self.rng, input_dim, output_dim))
+        self.add(name + ".b", lambda: np.zeros(output_dim, "float32"))
+
+    def norm(self, name: str, channels: int, n_labels: int | None = None) -> None:
+        """Offset and scale of a batch norm; per-label tables when
+        ``n_labels`` is given (conditional batch norm)."""
+        shape = (channels,) if n_labels is None else (n_labels, channels)
+        self.add(name + ".offset", lambda: np.zeros(shape, "float32"))
+        self.add(name + ".scale", lambda: np.ones(shape, "float32"))
+
+
+def split_params(params: Mapping, *names: str) -> tuple[dict, ...]:
+    """Partition a param dict by name substrings; the last group is the rest."""
+    groups: list[dict] = [dict() for _ in names]
+    rest: dict = {}
+    for k, v in params.items():
+        for i, n in enumerate(names):
+            if n in k:
+                groups[i][k] = v
+                break
+        else:
+            rest[k] = v
+    return (*groups, rest)
+
+
+def param_count(params: Mapping) -> int:
+    return sum(int(np.prod(tuple(v.shape))) for v in params.values())

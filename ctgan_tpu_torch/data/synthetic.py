@@ -1,0 +1,52 @@
+"""Deterministic synthetic images (own copy of ``ctgan_tpu/data/synthetic.py``,
+which cannot be imported without JAX).
+
+Each class is a distinct mixture of spatial gaussian blobs plus noise, so a
+discriminator has real signal to learn.  The arrays equal the JAX package's
+for the same arguments.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["synthetic_images"]
+
+
+def synthetic_images(
+    n: int,
+    channels: int,
+    size: int,
+    n_classes: int = 10,
+    seed: int = 1234,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (uint8 images [N, C*H*W] flat C-major, int labels [N]).
+
+    Each class c gets k class-specific blob centers; images are blob mixtures
+    plus noise — cheap, deterministic, and classifiable.
+    """
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_classes, size=n).astype("int64")
+    yy, xx = np.mgrid[0:size, 0:size].astype("float32") / size
+    # Class prototypes are seeded by the dataset *shape* only, so different
+    # splits (different sampling seeds) share the same class definitions.
+    proto_rng = np.random.default_rng((n_classes, channels, size))
+    centers = proto_rng.uniform(0.15, 0.85, size=(n_classes, 3, 2)).astype("float32")
+    widths = proto_rng.uniform(0.05, 0.15, size=(n_classes, 3)).astype("float32")
+    base = np.zeros((n_classes, size, size), dtype="float32")
+    for c in range(n_classes):
+        for b in range(3):
+            cy, cx = centers[c, b]
+            base[c] += np.exp(
+                -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * widths[c, b] ** 2)
+            )
+    base /= base.max(axis=(1, 2), keepdims=True)
+    imgs = base[labels]  # [N, H, W]
+    imgs = imgs[:, None, :, :].repeat(channels, axis=1)
+    if channels == 3:
+        tint = proto_rng.uniform(0.5, 1.0, size=(n_classes, 3, 1, 1)).astype("float32")
+        imgs = imgs * tint[labels]
+    noise = rng.normal(0, 0.08, size=imgs.shape).astype("float32")
+    imgs = np.clip(imgs + noise, 0.0, 1.0)
+    flat = (imgs * 255).astype("uint8").reshape(n, channels * size * size)
+    return flat, labels

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper, each with its plain PyTorch version.
+
+``SOURCES`` names every kernel source under ``csrc/`` (built by
+:func:`build.build_libraries`)."""
+
+from .dropout import dropout_mask, dropout_mask_reference
+
+SOURCES = ["dropout_mask"]
+
+__all__ = ["SOURCES", "dropout_mask", "dropout_mask_reference"]

@@ -1,0 +1,77 @@
+"""Convolutions (counterpart of ``conv2d``, ``conv_mean_pool2d`` and
+``mean_pool_conv2d`` in ``ctgan_tpu/ops/conv.py``).
+
+NCHW activations and OIHW filters; ``ctgan_tpu_torch.bridge`` converts the
+JAX package's HWIO filters.  Padding is TensorFlow's SAME, made explicit:
+``F.conv2d(padding="same")`` refuses stride 2, and SAME at stride 2 can pad
+one more row at the bottom than at the top.
+
+The two fused forms rewrite a conv followed or preceded by a 2x2 mean pool
+as one stride-2 conv with a transformed filter.  The transform is plain
+tensor math on the filter before ``F.conv2d``; the parameters are those of
+the unfused conv, so both arms share checkpoints.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["same_padding", "conv2d", "conv_mean_pool2d", "mean_pool_conv2d"]
+
+
+def same_padding(size: int, filter_size: int, stride: int) -> tuple[int, int]:
+    """TF SAME padding (before, after) of one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + filter_size - size, 0)
+    return total // 2, total - total // 2
+
+
+def _require_odd(fn_name: str, w: torch.Tensor) -> int:
+    k = w.shape[-1]
+    if k % 2 != 1:
+        raise ValueError(f"{fn_name} requires an odd filter_size (got {k})")
+    return k
+
+
+def _require_even_hw(fn_name: str, x: torch.Tensor) -> None:
+    h, w = x.shape[-2:]
+    if h % 2 or w % 2:
+        raise ValueError(
+            f"{fn_name} requires even spatial dims (got {h}x{w}): the fused "
+            "stride-2 rewrite assumes non-overlapping 2x2 pool windows"
+        )
+
+
+def conv2d(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, stride: int = 1
+) -> torch.Tensor:
+    """2-D SAME conv."""
+    ph = same_padding(x.shape[-2], w.shape[-2], stride)
+    pw = same_padding(x.shape[-1], w.shape[-1], stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, w, b, stride=stride, padding=(ph[0], pw[0]))
+    return F.conv2d(F.pad(x, (*pw, *ph)), w, b, stride=stride)
+
+
+def conv_mean_pool2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``mean_pool(conv2d(x, w, b))`` as one stride-2 conv.
+
+    The (K+1)x(K+1) filter is the K x K filter convolved with the 2x2 box
+    over 4, with (K-1)//2 padding per side: exact, boundaries included, for
+    odd K and even H, W (ctgan_tpu/ops/conv.py:131-194)."""
+    k = _require_odd("conv_mean_pool2d", w)
+    _require_even_hw("conv_mean_pool2d", x)
+    wf = 0.25 * sum(F.pad(w, (c, 1 - c, r, 1 - r)) for r in (0, 1) for c in (0, 1))
+    return F.conv2d(x, wf, b, stride=2, padding=(k - 1) // 2)
+
+
+def mean_pool_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``conv2d(mean_pool(x), w, b)`` as one stride-2 conv.
+
+    The 2K x 2K filter repeats each tap over its 2x2 pool window, over 4,
+    with K-1 padding per side (ctgan_tpu/ops/conv.py:197-248)."""
+    k = _require_odd("mean_pool_conv2d", w)
+    _require_even_hw("mean_pool_conv2d", x)
+    wf = 0.25 * w.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    return F.conv2d(x, wf, b, stride=2, padding=k - 1)

@@ -1,0 +1,173 @@
+"""Conditional ACGAN CT-GAN trainer (counterpart of
+``ctgan_tpu/train/trainer_acgan.py``).
+
+One iteration is one generator update, skipped at step 0 as in the
+reference (``if iteration > 0``), then ``critic_iters`` critic updates.
+Each critic update dequantises a uint8 batch with U[0, 1/128) noise, runs
+real and fake through D twice with independent dropout (as one 4B-row pass
+when ``fuse_ct_passes``), adds the consistency term, the gradient penalty
+(a double backward) and the ACGAN cross-entropy, and takes a TF-Adam step
+with linear LR decay.  A ``clean_pass`` at keep probability 1 gives the
+accuracy monitors.
+
+Every random draw comes from the ``rand`` argument
+(:class:`ctgan_tpu_torch.core.rng.Randomness` or a test's injected draws).
+The state is updated in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..losses.gan import (
+    acgan_accuracy,
+    acgan_loss,
+    consistency_term,
+    gradient_penalty,
+    wgan_losses,
+)
+from .optim import Adam
+from .schedules import linear_decay
+
+__all__ = ["AcganConfig", "AcganState", "AcganTrainer"]
+
+
+@dataclass(frozen=True)
+class AcganConfig:
+    batch_size: int = 64
+    critic_iters: int = 5
+    lambda_gp: float = 10.0
+    lambda_ct: float = 2.0
+    factor_m: float = 0.0
+    lr: float = 2e-4
+    beta1: float = 0.0
+    beta2: float = 0.9
+    iters: int = 100000
+    decay: bool = True
+    gen_bs_multiple: int = 2
+    n_labels: int = 10
+    conditional: bool = True
+    acgan: bool = True
+    acgan_scale: float = 1.0
+    acgan_scale_g: float = 0.1
+    kp: tuple = (0.8, 0.5, 0.5)
+    # one 2x-batch D pass for the CT pair; equal to two passes only because
+    # this D has no batch-coupled norm (ctgan_tpu/train/trainer_acgan.py:62-65)
+    fuse_ct_passes: bool = True
+    clean_pass: bool = True
+
+
+@dataclass
+class AcganState:
+    gen_params: dict
+    disc_params: dict
+    gen_opt: dict
+    disc_opt: dict
+    step: int = 0
+
+
+class AcganTrainer:
+    """``gen_fn(params, n, labels, rand, noise=None)`` -> flat images;
+    ``disc_fn(params, x, labels, kps, rand)`` -> ``DiscOut``."""
+
+    def __init__(self, gen_fn: Callable, disc_fn: Callable, cfg: AcganConfig):
+        self.gen_fn, self.disc_fn, self.cfg = gen_fn, disc_fn, cfg
+        lr = linear_decay(cfg.lr, cfg.iters) if cfg.decay else cfg.lr
+        self.gen_optimizer = Adam(lr, cfg.beta1, cfg.beta2)
+        self.disc_optimizer = Adam(lr, cfg.beta1, cfg.beta2)
+
+    def init_state(self, gen_params: dict, disc_params: dict) -> AcganState:
+        for p in (*gen_params.values(), *disc_params.values()):
+            p.requires_grad_(True)
+        return AcganState(
+            gen_params, disc_params,
+            self.gen_optimizer.init(gen_params), self.disc_optimizer.init(disc_params),
+        )
+
+    def disc_loss(self, disc_params, gen_params, real, labels, rand):
+        cfg = self.cfg
+        b = real.shape[0]
+        with torch.no_grad():
+            fake = self.gen_fn(gen_params, b, labels, rand)
+        both = torch.cat([real, fake])
+        both_labels = torch.cat([labels, labels])
+        if cfg.fuse_ct_passes:
+            d_pair = self.disc_fn(disc_params, torch.cat([both, both]),
+                                  torch.cat([both_labels, both_labels]), cfg.kp, rand)
+            d_all = type(d_pair)(*(None if v is None else v[: 2 * b] for v in d_pair))
+            d_all_2 = type(d_pair)(*(None if v is None else v[2 * b:] for v in d_pair))
+        else:
+            d_all = self.disc_fn(disc_params, both, both_labels, cfg.kp, rand)
+            d_all_2 = self.disc_fn(disc_params, both, both_labels, cfg.kp, rand)
+
+        d_real, d_fake = d_all.wgan[:b], d_all.wgan[b:]
+        _, wgan = wgan_losses(d_real, d_fake)
+        ct = consistency_term(
+            d_real, d_all_2.wgan[:b], d_all.features[:b], d_all_2.features[:b],
+            lambda_2=cfg.lambda_ct, factor_m=cfg.factor_m,
+        )
+        gp, _ = gradient_penalty(
+            lambda x: self.disc_fn(disc_params, x, labels, cfg.kp, rand).wgan,
+            real, fake, rand.gp_alpha(b),
+        )
+        cost = wgan + ct + cfg.lambda_gp * gp
+        metrics = {"wgan": wgan, "ct": ct, "gp": gp}
+        if cfg.conditional and cfg.acgan:
+            ac = acgan_loss(d_all.acgan[:b], labels)
+            cost = cost + cfg.acgan_scale * ac
+            metrics["acgan"] = ac
+            if cfg.clean_pass:
+                with torch.no_grad():
+                    d_clean = self.disc_fn(disc_params, both, both_labels, (1.0, 1.0, 1.0), rand)
+                metrics["acc_real"] = acgan_accuracy(d_clean.acgan[:b], labels)
+                metrics["acc_fake"] = acgan_accuracy(d_clean.acgan[b:], labels)
+        metrics["disc_cost"] = cost
+        return cost, metrics
+
+    def gen_loss(self, gen_params, disc_params, rand):
+        cfg = self.cfg
+        n = cfg.gen_bs_multiple * cfg.batch_size
+        fake_labels = rand.labels(n, cfg.n_labels)
+        fake = self.gen_fn(gen_params, n, fake_labels, rand)
+        d = self.disc_fn(disc_params, fake, fake_labels, cfg.kp, rand)
+        cost = -d.wgan.mean()
+        if cfg.conditional and cfg.acgan:
+            cost = cost + cfg.acgan_scale_g * acgan_loss(d.acgan, fake_labels)
+        return cost
+
+    def gen_substep(self, state: AcganState, rand) -> torch.Tensor:
+        """G update.  At step 0 the update is computed and dropped, as the
+        JAX step blends it away, so both draw the same randomness."""
+        cost = self.gen_loss(state.gen_params, state.disc_params, rand)
+        names = list(state.gen_params)
+        grads = torch.autograd.grad(cost, [state.gen_params[k] for k in names])
+        if state.step > 0:
+            self.gen_optimizer.update(dict(zip(names, grads)), state.gen_opt,
+                                      state.gen_params, state.step)
+        return cost.detach()
+
+    def critic_substep(self, state: AcganState, real_u8: torch.Tensor, labels: torch.Tensor,
+                       rand) -> dict:
+        real = 2.0 * (real_u8.float() / 256.0 - 0.5)
+        real = real + rand.dequant(real.shape)
+        cost, metrics = self.disc_loss(state.disc_params, state.gen_params, real, labels, rand)
+        names = list(state.disc_params)
+        grads = torch.autograd.grad(cost, [state.disc_params[k] for k in names])
+        self.disc_optimizer.update(dict(zip(names, grads)), state.disc_opt,
+                                   state.disc_params, state.step)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def step(self, state: AcganState, real_stack: torch.Tensor, label_stack: torch.Tensor,
+             rand) -> dict:
+        """One iteration.  ``real_stack``: ``[K, B, 3072]`` uint8 pixels,
+        ``label_stack``: ``[K, B]``.  Returns the last critic substep's
+        metrics plus ``gen_cost`` as 0-d device tensors."""
+        g_cost = self.gen_substep(state, rand)
+        for i in range(real_stack.shape[0]):
+            metrics = self.critic_substep(state, real_stack[i], label_stack[i], rand)
+        metrics["gen_cost"] = g_cost
+        state.step += 1
+        return metrics
