@@ -1,46 +1,53 @@
 """Conditional ResNet/ACGAN CT-GAN on CIFAR-10, the flagship trainer
 (counterpart of ``ctgan_tpu/apps/ct_gan_cifar_resnet.py``).
 
-    python -m ctgan_tpu_torch.apps.ct_gan_cifar_resnet --ITERS 15
+    python -m ctgan_tpu_torch.apps.ct_gan_cifar_resnet --ITERS 15 --out_dir runs/x
 
 The flags are the fields of :class:`Config`, under the JAX app's names and
 defaults, with these differences.  Runs are fp32: ``BF16`` defaults to off
 and raises if set (the bf16 policy is a later slice).  ``CUDA_DROPOUT``
 takes the place of ``PALLAS_DROPOUT`` and, like it, is on by default.
-Checkpoints, sample grids and the inception score (``save_every``,
-``sample_every``, ``INCEPTION_FREQUENCY``), ``REMAT``, ``OPT_STATE_DTYPE``
-and ``MODEL_AXIS`` come with later slices and are not fields yet.
+``REMAT``, ``OPT_STATE_DTYPE`` and ``MODEL_AXIS`` are not ported.
 
-Metrics are printed on the JAX loop's cadence (the first 5 iterations, every
-100th and the last) as means since the previous print, with ``time`` the
-seconds per iteration over the same span, and appended to
-``<out_dir>/log.ndjson``.  ``out_dir`` defaults to a new temporary
-directory.
+The run is the JAX app's workflow through ``train.loop.train_loop``:
+metrics printed on the first 5 iterations and every 100th (means since the
+previous print, ``time`` in seconds per iteration) into ``log.ndjson`` and
+``log.pkl``; every ``sample_every`` iterations the dev cost on the first
+``BATCH_SIZE * 10`` test images and a grid of 100 fixed samples
+(``samples_<it>.png``); every ``INCEPTION_FREQUENCY`` iterations the
+inception score over ``inception_samples`` generated images and FID on
+10,000, through the TrainedScorer cached in ``<out_dir>/scorer.npz``;
+every ``save_every`` iterations a checkpoint ``ckpt/ckpt_<N>.npz`` in the
+JAX package's format (the newest 5 kept) and ``params_latest.npz``.  Run it
+again with the same ``out_dir`` and it resumes, also from a checkpoint the
+JAX app wrote.  Every iteration's draws are a function of ``(seed, step)``,
+so a resumed run trains as an uninterrupted one would.
+
+Entry points run on ``cuda``; ``main(..., device="cpu")`` runs on the CPU
+with the dropout kernel's plain version.
 """
 
 from __future__ import annotations
 
-import argparse
-import dataclasses
-import json
-import math
-import os
-import tempfile
-import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..bridge import from_jax_params
-from ..core import Randomness, param_count, split_params
-from ..data import DeviceSampler, load_train
+from ..bridge import from_jax_params, state_from_jax, state_to_jax
+from ..core import Randomness, format_param_table, split_params
+from ..data import DeviceSampler, load_arrays
 from ..models import resnet_cifar
-from ..train import AcganConfig, AcganTrainer
+from ..train import AcganConfig, AcganState, AcganTrainer, LoopConfig, train_loop
+from ..utils.logging import MetricLogger
+from . import common
+from .common import pick_scorer, save_sample_grid, setup_out_dir
 
-__all__ = ["Config", "main", "parse_config", "setup"]
+__all__ = ["Config", "Flagship", "main", "make_test_fn", "parse_config", "setup"]
 
-PRINT_FIRST = 5
-PRINT_EVERY = 100
+GEN_CHUNK = 5000  # images per generator call in the IS/FID eval (batch statistics!)
+N_GRID = 100
 
 
 @dataclass(frozen=True)
@@ -57,6 +64,7 @@ class Config:
     LR: float = 2e-4
     DECAY: bool = True
     N_CRITIC: int = 5
+    INCEPTION_FREQUENCY: int = 1000
     CONDITIONAL: bool = True
     ACGAN: bool = True
     ACGAN_SCALE: float = 1.0
@@ -69,25 +77,31 @@ class Config:
     FUSE_CT_PASSES: bool = True
     FUSE_MEANPOOL: bool = True
     seed: int = 0
-    out_dir: str = ""
+    allow_fresh_start: bool = False
+    out_dir: str = "runs/ct_gan_cifar_resnet"
+    inception_samples: int = 50000
+    sample_every: int = 100
+    save_every: int = 1000
 
 
 def parse_config(argv=None) -> Config:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    for f in dataclasses.fields(Config):
-        if f.type in ("bool", bool):
-            parser.add_argument("--" + f.name, default=f.default,
-                                type=lambda s: s.lower() in ("1", "true", "yes"))
-        else:
-            parser.add_argument("--" + f.name, type=type(f.default), default=f.default)
-    return Config(**vars(parser.parse_args(argv)))
+    return common.parse_config(Config, argv)
 
 
-def setup(cfg: Config, device: torch.device):
-    """Fresh trainer and state, the device-resident data sampler and the
-    randomness of a run of ``cfg`` on ``device``."""
+class Flagship(NamedTuple):
+    trainer: AcganTrainer
+    state: AcganState
+    sampler: DeviceSampler
+    rand: Randomness
+    data: dict  # load_arrays: {"train": (x, y), "test": (x, y)}
+
+
+def setup(cfg: Config, device) -> Flagship:
+    """Fresh trainer and state, the data, the device-resident sampler and
+    the base randomness of a run of ``cfg`` on ``device``."""
     if cfg.BF16:
         raise NotImplementedError("BF16: the bf16 policy is not ported yet; runs are fp32")
+    device = torch.device(device)
     mcfg = resnet_cifar.ResnetCifarConfig(
         dim_g=cfg.DIM_G, dim_d=cfg.DIM_D, conditional=cfg.CONDITIONAL, acgan=cfg.ACGAN,
         normalization_g=cfg.NORMALIZATION_G, normalization_d=cfg.NORMALIZATION_D,
@@ -113,51 +127,90 @@ def setup(cfg: Config, device: torch.device):
         raise RuntimeError(f"parameters outside G and D: {sorted(rest)}")
     trainer = AcganTrainer(gen_fn, disc_fn, tcfg)
     state = trainer.init_state(gparams, dparams)
-    images, labels = load_train(cfg.DATA_DIR or None, n_examples=cfg.n_examples)
-    sampler = DeviceSampler([images, labels], cfg.BATCH_SIZE, cfg.N_CRITIC, seed=cfg.seed,
+    data = load_arrays(cfg.DATA_DIR or None, n_examples=cfg.n_examples)
+    sampler = DeviceSampler(list(data["train"]), cfg.BATCH_SIZE, cfg.N_CRITIC, seed=cfg.seed,
                             device=device)
     rand = Randomness(cfg.seed, device, cuda_dropout=cfg.CUDA_DROPOUT)
-    return trainer, state, sampler, rand
+    return Flagship(trainer, state, sampler, rand, data)
+
+
+def make_test_fn(cfg: Config, flagship: Flagship, scorer, out_dir: str):
+    """The JAX app's ``test_fn(state, iteration) -> metrics``: dev cost on
+    the first ``BATCH_SIZE * 10`` test images in one call, the fixed
+    100-sample grid, and on the inception cadence IS and FID.  Each part
+    draws from its own fixed seed, as the JAX app uses fixed keys."""
+    trainer, device = flagship.trainer, flagship.rand.device
+    dev_images, dev_labels = flagship.data["test"]
+    n_dev = cfg.BATCH_SIZE * 10
+    dev_x = torch.from_numpy(dev_images[:n_dev]).to(device)
+    dev_y = torch.from_numpy(dev_labels[:n_dev]).to(device)
+    fixed_noise = torch.from_numpy(
+        np.random.default_rng(cfg.seed).normal(size=(N_GRID, 128)).astype("f4")).to(device)
+    fixed_labels = torch.arange(N_GRID, device=device) % 10
+    real_sub = dev_images[: min(len(dev_images), 10000)]
+
+    def rand(seed: int) -> Randomness:
+        return Randomness(seed, device, cuda_dropout=cfg.CUDA_DROPOUT)
+
+    def generate_u8(state, n: int, seed: int) -> torch.Tensor:
+        flat, _ = trainer.generate(state, n, rand(seed))
+        return ((flat + 1.0) * (255.99 / 2)).to(torch.uint8)
+
+    def test_fn(state, iteration: int) -> dict:
+        metrics = {"dev_cost": float(trainer.dev_cost(state, dev_x, dev_y, rand(1)))}
+        samples = trainer.sample(state, fixed_noise, fixed_labels, rand(0))
+        save_sample_grid(samples, (3, 32, 32), f"{out_dir}/samples_{iteration}.png")
+        freq = cfg.INCEPTION_FREQUENCY
+        if freq and iteration % freq == freq - 1:
+            chunks = [generate_u8(state, GEN_CHUNK, i) for i in range(0, cfg.inception_samples, GEN_CHUNK)]
+            all_samples = torch.cat(chunks)[: cfg.inception_samples]
+            m, s = scorer.inception_score(all_samples)
+            metrics["inception_50k"] = m
+            metrics["inception_50k_std"] = s
+            metrics["fid_10k"] = scorer.fid(real_sub, all_samples[: len(real_sub)])
+        return metrics
+
+    return test_fn
 
 
 def main(argv=None, cfg: Config | None = None, device="cuda"):
-    """Train ``cfg.ITERS`` iterations on ``device``.  Returns the final
-    state and the printed records (dicts of metric means)."""
+    """Train to ``cfg.ITERS`` iterations on ``device``, resuming from
+    ``out_dir`` when it holds a checkpoint.  Returns the final state and
+    the records printed by this process."""
     cfg = cfg or parse_config(argv)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    out_dir = cfg.out_dir or tempfile.mkdtemp(prefix="ctgan_tpu_torch_")
-    os.makedirs(out_dir, exist_ok=True)
-    print("Settings: " + ", ".join(f"{k}={v!r}" for k, v in dataclasses.asdict(cfg).items()))
+    out_dir = setup_out_dir(cfg)
+    flagship = setup(cfg, device)
+    print(format_param_table(flagship.state.gen_params, "G Params"))
+    print(format_param_table(flagship.state.disc_params, "D Params"))
     print(f"device {device}, out_dir {out_dir}")
+    scorer = pick_scorer(3, 32, out_dir, train_data=flagship.data["train"], device=device)
+    test_fn = make_test_fn(cfg, flagship, scorer, out_dir)
 
-    trainer, state, sampler, rand = setup(cfg, device)
-    print(f"G params: {param_count(state.gen_params):,}  D params: {param_count(state.disc_params):,}")
+    counter = {"i": 0}
 
-    records, pending = [], []
-    last_t, last_it = time.perf_counter(), -1
-    for it in range(cfg.ITERS):
-        real_stack, label_stack = sampler.sample(it)
-        metrics = trainer.step(state, real_stack, label_stack, rand)
-        names = sorted(metrics)
-        pending.append(torch.stack([metrics[k].float() for k in names]))
-        if it < PRINT_FIRST or it % PRINT_EVERY == PRINT_EVERY - 1 or it == cfg.ITERS - 1:
-            means = torch.stack(pending).mean(dim=0).tolist()  # waits for the device
-            now = time.perf_counter()
-            record = {"iteration": it, **dict(zip(names, means)),
-                      "time": (now - last_t) / (it - last_it)}
-            pending.clear()
-            last_t, last_it = now, it
-            bad = [k for k in names if not math.isfinite(record[k])]
-            if bad:
-                raise FloatingPointError(f"non-finite metrics at iteration {it}: {bad}")
-            print(f"iter {it}\t" + "\t".join(f"{k}\t{record[k]:.5f}" for k in [*names, "time"]),
-                  flush=True)
-            with open(os.path.join(out_dir, "log.ndjson"), "a") as f:
-                f.write(json.dumps(record) + "\n")
-            records.append(record)
-    return state, records
+    def next_batch():
+        i = counter["i"]
+        counter["i"] += 1
+        return flagship.sampler.sample(i)
+
+    def step_fn(state, real_stack, label_stack, rand):
+        return state, flagship.trainer.step(state, real_stack, label_stack, rand.for_step(state.step))
+
+    lcfg = LoopConfig(
+        iters=cfg.ITERS, print_every=100, test_every=cfg.sample_every, save_every=cfg.save_every,
+        ckpt_dir=f"{out_dir}/ckpt", allow_fresh_start=cfg.allow_fresh_start, keep_checkpoints=5,
+    )
+    logger = MetricLogger(out_dir)
+    state = train_loop(
+        flagship.state, step_fn, next_batch, flagship.rand, lcfg, logger=logger, test_fn=test_fn,
+        data_state=lambda: {"i": counter["i"]},
+        set_data_state=lambda s: counter.update(i=int(s["i"])),
+        to_blob=state_to_jax, from_blob=lambda blob: state_from_jax(blob, device),
+    )
+    return state, logger.records
 
 
 if __name__ == "__main__":

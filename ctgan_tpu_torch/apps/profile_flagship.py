@@ -58,14 +58,14 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda")
     cfg = Config(ITERS=WARMUP + ITERS)
-    trainer, state, sampler, rand = setup(cfg, device)
+    trainer, state, sampler, rand, _ = setup(cfg, device)
     for it in range(WARMUP):
-        trainer.step(state, *sampler.sample(it), rand)
+        trainer.step(state, *sampler.sample(it), rand.for_step(it))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for it in range(WARMUP, WARMUP + ITERS):
-            trainer.step(state, *sampler.sample(it), rand)
+            trainer.step(state, *sampler.sample(it), rand.for_step(it))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     if argv:

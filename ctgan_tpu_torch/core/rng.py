@@ -6,6 +6,11 @@ numbers.  So the port asks one object for each draw: latent noise, fake
 labels, dequantisation noise, gradient-penalty alphas and dropout masks.
 :class:`Randomness` is the default; a parity test passes an object with the
 same methods that hands out the JAX package's own draws.
+
+A training run asks :meth:`Randomness.for_step` for each iteration's draws:
+they are a function of ``(seed, step)`` alone, as the JAX package folds the
+step into its base key, so a run resumed from a checkpoint draws what an
+uninterrupted run draws, with no generator state in the file.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ class Randomness:
     """
 
     def __init__(self, seed: int, device, *, generator_device=None, cuda_dropout: bool = True):
+        self.seed = seed
         self.device = torch.device(device)
         gen_device = torch.device(generator_device) if generator_device is not None else self.device
         self._gen_device = gen_device
@@ -38,6 +44,13 @@ class Randomness:
         self._gen.manual_seed(seed)
         self._seeds = np.random.default_rng(seed)
         self._cuda_dropout = cuda_dropout
+
+    def for_step(self, step: int) -> "Randomness":
+        """A fresh provider for training step ``step``, seeded from
+        ``(seed, step)``."""
+        derived = int(np.random.SeedSequence([self.seed, step]).generate_state(1, np.uint64)[0] >> 1)
+        return Randomness(derived, self.device, generator_device=self._gen_device,
+                          cuda_dropout=self._cuda_dropout)
 
     def _to(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.device)

@@ -7,17 +7,20 @@ JAX layout (HWIO filters, ``[in, out]`` linear weights) with NumPy, drawing
 from ``np.random.default_rng(seed)`` in the order the JAX model creates
 them, so one seed gives the same weights in both packages.
 ``ctgan_tpu_torch.bridge.from_jax_params`` then converts them to tensors.
+:func:`format_param_table` and :func:`print_model_settings` are the apps'
+start-up printouts (``ctgan_tpu/core/store.py:266-290``).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Mapping
 
 import numpy as np
 
 from ..ops.init import conv_filter_stdev, linear_initializer, uniform_stdev
 
-__all__ = ["ParamInit", "split_params", "param_count"]
+__all__ = ["ParamInit", "split_params", "param_count", "format_param_table", "print_model_settings"]
 
 
 class ParamInit:
@@ -32,8 +35,8 @@ class ParamInit:
             self.params[name] = np.asarray(make(), dtype="float32")
 
     def conv(self, name: str, input_dim: int, output_dim: int, filter_size: int,
-             *, he_init: bool = True) -> None:
-        stdev = conv_filter_stdev(input_dim, output_dim, filter_size, 1, he_init)
+             *, he_init: bool = True, stride: int = 1) -> None:
+        stdev = conv_filter_stdev(input_dim, output_dim, filter_size, stride, he_init)
         self.add(name + ".Filters", lambda: uniform_stdev(
             self.rng, stdev, (filter_size, filter_size, input_dim, output_dim)))
         self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
@@ -66,3 +69,27 @@ def split_params(params: Mapping, *names: str) -> tuple[dict, ...]:
 
 def param_count(params: Mapping) -> int:
     return sum(int(np.prod(tuple(v.shape))) for v in params.values())
+
+
+def format_param_table(params: Mapping, title: str = "Params") -> str:
+    """Name and shape of each parameter, sorted by name, and the total
+    count, as the JAX package prints them."""
+    lines = [f"{title}:"]
+    total = 0
+    for k in sorted(params):
+        shape = tuple(params[k].shape)
+        total += int(np.prod(shape)) if shape else 1
+        lines.append(f"\t{k} ({','.join(map(str, shape))})")
+    lines.append(f"Total param count: {total:,}")
+    return "\n".join(lines)
+
+
+_SETTING_RE = re.compile(r"^[A-Z][A-Z0-9_]*$")
+
+
+def print_model_settings(scope: Mapping[str, object]) -> str:
+    """Print the UPPERCASE entries of ``scope``, sorted; returns the text."""
+    keys = sorted(k for k in scope if _SETTING_RE.match(k))
+    out = "Uppercase local vars:\n" + "\n".join(f"\t{k}: {scope[k]!r}" for k in keys)
+    print(out)
+    return out

@@ -1,24 +1,26 @@
-"""CIFAR-10 training split (counterpart of ``ctgan_tpu/data/cifar10.py``).
+"""CIFAR-10 (counterpart of ``ctgan_tpu/data/cifar10.py:34-46``).
 
 Reads the python-version batch files when ``data_dir`` holds them, else
 makes the deterministic synthetic set.  Flat ``[N, 3072]`` uint8 in
-channel-major (C, H, W) order, and int64 labels.  Only the training split is
-loaded: the test split serves the evaluation, which is not ported yet.
+channel-major (C, H, W) order, and int64 labels.  :func:`load_arrays`
+returns the JAX package's exact train and test arrays: the synthetic set is
+always drawn whole (50,000 train, 10,000 test) and the train split is then
+cut to ``n_examples``, so a small run trains on the first images of the
+full set and evaluates on the same test split.  The synthetic draw takes
+seconds, so a process makes it once and hands out copies.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 
 import numpy as np
 
-from .synthetic import synthetic_images
+from .synthetic import synthetic_cifar10
 
-__all__ = ["load_train"]
-
-N_TRAIN = 50000
-SYNTHETIC_SEED = 4321  # the JAX package's synthetic_cifar10 train split
+__all__ = ["load_arrays", "load_train"]
 
 
 def _unpickle(path):
@@ -27,16 +29,24 @@ def _unpickle(path):
     return np.asarray(d["data"], "uint8"), np.asarray(d["labels"], "int64")
 
 
-def load_train(data_dir: str | None = None, n_examples: int | None = None):
-    """``(images, labels)`` of the first ``n_examples`` training examples.
+@functools.lru_cache(maxsize=1)
+def _synthetic():
+    return synthetic_cifar10()
 
-    Without data files the synthetic set is drawn at ``n_examples`` (equal
-    to the JAX package's synthetic training split at the full 50000; a
-    smaller draw is a different, cheaper set)."""
-    n = N_TRAIN if n_examples is None else n_examples
+
+def load_arrays(data_dir: str | None = None, n_examples: int | None = None) -> dict:
+    """``{"train": (images, labels), "test": (images, labels)}``."""
     if data_dir and os.path.exists(os.path.join(data_dir, "data_batch_1")):
         parts = [_unpickle(os.path.join(data_dir, f"data_batch_{i}")) for i in range(1, 6)]
-        images = np.concatenate([x for x, _ in parts])
-        labels = np.concatenate([y for _, y in parts])
-        return images[:n], labels[:n]
-    return synthetic_images(n, 3, 32, seed=SYNTHETIC_SEED)
+        train = (np.concatenate([x for x, _ in parts]), np.concatenate([y for _, y in parts]))
+        test = _unpickle(os.path.join(data_dir, "test_batch"))
+    else:
+        train, test = _synthetic()
+    if n_examples is not None:
+        train = (train[0][:n_examples], train[1][:n_examples])
+    return {"train": tuple(a.copy() for a in train), "test": tuple(a.copy() for a in test)}
+
+
+def load_train(data_dir: str | None = None, n_examples: int | None = None):
+    """``(images, labels)`` of the first ``n_examples`` training examples."""
+    return load_arrays(data_dir, n_examples)["train"]

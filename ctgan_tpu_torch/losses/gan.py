@@ -34,14 +34,16 @@ def consistency_term(
 
 def gradient_penalty(
     disc_fn: Callable[[torch.Tensor], torch.Tensor], real: torch.Tensor, fake: torch.Tensor,
-    alpha: torch.Tensor, *, target: float = 1.0,
+    alpha: torch.Tensor, *, target: float = 1.0, create_graph: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(mean((|grad D(x_hat)|_2 - target)^2), slopes)`` at ``x_hat = real +
     alpha * (fake - real)``.  The input gradient keeps its graph
     (``create_graph=True``), so the parameter gradient differentiates through
-    it: a double backward."""
+    it: a double backward.  An evaluation passes ``create_graph=False``: the
+    penalty's value only, and the forward's graph is freed by the one
+    backward."""
     x_hat = (real + alpha * (fake - real)).detach().requires_grad_(True)
-    (grads,) = torch.autograd.grad(disc_fn(x_hat).float().sum(), x_hat, create_graph=True)
+    (grads,) = torch.autograd.grad(disc_fn(x_hat).float().sum(), x_hat, create_graph=create_graph)
     grads = grads.float()
     slopes = torch.sqrt(grads.square().sum(dim=tuple(range(1, grads.ndim))) + 1e-12)
     return (slopes - target).square().mean(), slopes

@@ -13,6 +13,11 @@ accuracy monitors.
 Every random draw comes from the ``rand`` argument
 (:class:`ctgan_tpu_torch.core.rng.Randomness` or a test's injected draws).
 The state is updated in place.
+
+:meth:`AcganTrainer.dev_cost`, :meth:`~AcganTrainer.sample` and
+:meth:`~AcganTrainer.generate` are the evaluation functions
+(``ctgan_tpu/train/trainer_acgan.py:275-305``).  Batch norm in G uses the
+statistics of the batch it is given, so samples depend on the batch size.
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ class AcganTrainer:
             self.gen_optimizer.init(gen_params), self.disc_optimizer.init(disc_params),
         )
 
-    def disc_loss(self, disc_params, gen_params, real, labels, rand):
+    def disc_loss(self, disc_params, gen_params, real, labels, rand, *, create_graph: bool = True):
         cfg = self.cfg
         b = real.shape[0]
         with torch.no_grad():
@@ -111,7 +116,7 @@ class AcganTrainer:
         )
         gp, _ = gradient_penalty(
             lambda x: self.disc_fn(disc_params, x, labels, cfg.kp, rand).wgan,
-            real, fake, rand.gp_alpha(b),
+            real, fake, rand.gp_alpha(b), create_graph=create_graph,
         )
         cost = wgan + ct + cfg.lambda_gp * gp
         metrics = {"wgan": wgan, "ct": ct, "gp": gp}
@@ -149,10 +154,15 @@ class AcganTrainer:
                                       state.gen_params, state.step)
         return cost.detach()
 
+    @staticmethod
+    def dequantize(real_u8: torch.Tensor, rand) -> torch.Tensor:
+        """uint8-valued pixels -> [-1, 1) plus U[0, 1/128) noise."""
+        real = 2.0 * (real_u8.float() / 256.0 - 0.5)
+        return real + rand.dequant(real.shape)
+
     def critic_substep(self, state: AcganState, real_u8: torch.Tensor, labels: torch.Tensor,
                        rand) -> dict:
-        real = 2.0 * (real_u8.float() / 256.0 - 0.5)
-        real = real + rand.dequant(real.shape)
+        real = self.dequantize(real_u8, rand)
         cost, metrics = self.disc_loss(state.disc_params, state.gen_params, real, labels, rand)
         names = list(state.disc_params)
         grads = torch.autograd.grad(cost, [state.disc_params[k] for k in names])
@@ -171,3 +181,27 @@ class AcganTrainer:
         metrics["gen_cost"] = g_cost
         state.step += 1
         return metrics
+
+    def dev_cost(self, state: AcganState, real_u8: torch.Tensor, labels: torch.Tensor,
+                 rand) -> torch.Tensor:
+        """The critic's cost on a dev batch of uint8-valued pixels,
+        dequantised as in training.  No parameter gradient is taken; the
+        gradient penalty takes D's input gradient without keeping its graph,
+        so no double-backward graph is built."""
+        real = self.dequantize(real_u8, rand)
+        detached = lambda p: {k: v.detach() for k, v in p.items()}
+        cost, _ = self.disc_loss(detached(state.disc_params), detached(state.gen_params),
+                                 real, labels, rand, create_graph=False)
+        return cost.detach()
+
+    @torch.no_grad()
+    def sample(self, state: AcganState, noise: torch.Tensor, labels: torch.Tensor,
+               rand) -> torch.Tensor:
+        """Flat images from given noise and labels."""
+        return self.gen_fn(state.gen_params, noise.shape[0], labels, rand, noise=noise)
+
+    @torch.no_grad()
+    def generate(self, state: AcganState, n: int, rand) -> tuple[torch.Tensor, torch.Tensor]:
+        """``n`` flat images of uniformly drawn labels, and the labels."""
+        labels = rand.labels(n, self.cfg.n_labels)
+        return self.gen_fn(state.gen_params, n, labels, rand), labels

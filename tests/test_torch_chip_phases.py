@@ -1,0 +1,93 @@
+"""Rehearsal on the CPU of the phases ``chip_smoke.py`` adds for the
+training workflow: the app through the train loop with checkpoints, grids
+and IS/FID, its resume, resumed-equals-uninterrupted, the PNG check and the
+launch counts the card run must see."""
+
+from __future__ import annotations
+
+import importlib.util
+import io
+import math
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
+from ctgan_tpu_torch.utils.images import png_bytes
+
+import torch_parity  # noqa: F401  (one intra-op thread per test worker)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_train_and_resume_phases_rehearse_on_cpu(chip_smoke, tmp_path, capsys):
+    cfg = app.Config(ITERS=6, DIM_G=16, DIM_D=16, BATCH_SIZE=4, N_CRITIC=2, n_examples=256,
+                     save_every=3, sample_every=3, INCEPTION_FREQUENCY=6, inception_samples=300,
+                     out_dir=str(tmp_path))
+    train = chip_smoke.phase_train("cpu", cfg)
+    assert train["launches"] == 0 and train["peak_bytes"] is None
+    assert train["scorer_fit_s"] is not None  # the fit's time, read from the app's output
+    assert [r["iteration"] for r in train["evals"]] == [5]
+    assert 1.0 <= train["evals"][0]["inception_50k"] <= 10.0
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["ckpt_3.npz", "ckpt_6.npz"]
+    resume = chip_smoke.phase_resume("cpu", cfg)
+    assert resume["start"] == 6 and resume["launches"] == 0
+    assert resume["line"] in capsys.readouterr().out
+
+
+def test_resume_equal_phase_rehearses_on_cpu(chip_smoke):
+    assert chip_smoke.phase_resume_equal("cpu") == 0.0
+
+
+def test_launch_counts_of_the_card_run(chip_smoke):
+    """Train: 10 iterations of 33 masks and 2 test_fn calls of 6; resume:
+    iterations 10 and 11, no test_fn."""
+    cfg = app.Config(ITERS=10, save_every=5, sample_every=5)
+    assert chip_smoke._expected_launches(cfg, 0, "cuda") == 10 * 33 + 2 * 6
+    more = app.Config(ITERS=12, save_every=5, sample_every=5)
+    assert chip_smoke._expected_launches(more, 10, "cuda") == 2 * 33
+    assert chip_smoke._expected_launches(cfg, 0, "cpu") == 0
+
+
+def test_dev_cost_mask_shapes(chip_smoke):
+    """The dev cost's masks: the fused CT pair over 640 examples (about 21 M
+    elements, within int32 indexing) and the GP pass."""
+    shapes = chip_smoke.dev_cost_mask_shapes()
+    assert shapes == [(2560, 128, 8, 8), (640, 128, 8, 8)]
+    assert math.prod(shapes[0]) == 20_971_520 < 2**31
+
+
+@pytest.mark.parametrize("shape", [(7, 9, 3), (5, 4)])
+def test_decode_png_agrees_with_pil(chip_smoke, tmp_path, shape):
+    img = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    path = tmp_path / "x.png"
+    path.write_bytes(png_bytes(img))
+    np.testing.assert_array_equal(chip_smoke.decode_png(path), img)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+    data = bytearray(path.read_bytes())
+    data[-20] ^= 0xFF  # inside the IDAT chunk
+    path.write_bytes(bytes(data))
+    with pytest.raises((AssertionError, zlib.error)):
+        chip_smoke.decode_png(path)
+
+
+def test_decode_png_reads_a_pil_file(chip_smoke, tmp_path):
+    img = np.random.default_rng(1).integers(0, 256, (6, 8, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG", compress_level=0)
+    (tmp_path / "p.png").write_bytes(buf.getvalue())
+    try:
+        np.testing.assert_array_equal(chip_smoke.decode_png(tmp_path / "p.png"), img)
+    except AssertionError as e:  # PIL may pick row filters; the check refuses those by design
+        assert "filters" in str(e)

@@ -26,6 +26,12 @@ from ctgan_tpu_torch.models import resnet_cifar as port_resnet
 
 KP = (0.8, 0.5, 0.5)
 
+# The suite runs as several pytest-xdist workers on one host, beside JAX's
+# own thread pools.  PyTorch's default of one intra-op thread per core in
+# every worker oversubscribes the cores, and its spinning threads made the
+# port's CPU tests many times slower than alone.  One thread per worker.
+torch.set_num_threads(1)
+
 
 def jax_model_cfg(dim: int):
     return jax_resnet.ResnetCifarConfig(dim_g=dim, dim_d=dim)
