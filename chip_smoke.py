@@ -8,32 +8,43 @@ Phases, each printed with its seconds:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds every CUDA kernel (ptxas report on stderr);
 3. kernel: the dropout-mask kernel against its plain PyTorch version at the
-   flagship's three training mask shapes (fp32 and bf16) and its two
-   dev-cost shapes (fp32), keep prob 0.8 and 0.5: bit for bit, keep
-   fraction, determinism; then its time beside its byte bound, the plain
-   version's time and ``bernoulli_``'s;
-4. cuda_vs_cpu: two flagship iterations at dim 16 on the card and on the
-   CPU with the same draws (masks from the kernel on the card, from the
-   plain version on the CPU), TF32 off, params compared;
-5. train: the flagship app (``apps.ct_gan_cifar_resnet.main``) at full
-   width for 10 iterations in a temporary ``out_dir``, through the train
-   loop: checkpoints every 5 iterations, a sample grid and the dev cost
-   every 5, IS and FID at iteration 9 over 5,000 generated images (cut from
-   50,000 for time) with a TrainedScorer fitted on the card; the files are
-   checked and the grids decoded.  Then ``main`` again with ``ITERS=12`` in
-   the same directory, which must resume at iteration 10.  The kernel's
-   launches are counted in each call;
-6. resume_equal: at dim 16, with cuDNN deterministic, 4 iterations
-   uninterrupted against 2 + checkpoint + a fresh trainer + 2;
-7. jax_checkpoint: the JAX package's dim-128 checkpoint
+   flagship's three training mask shapes and its two dev-cost shapes, fp32
+   and bf16, keep prob 0.8 and 0.5: bit for bit, keep fraction,
+   determinism; the Philox-uniform kernel against its plain version at the
+   dequantisation noise's shapes (a critic batch, the dev batch), bit for
+   bit; then each kernel's time beside its byte bound, the plain version's
+   time and one PyTorch call's (``bernoulli_``, ``uniform_``);
+4. draws: the run's draws on the card against the CPU's, bit for bit: the
+   sampler's epoch permutations and every draw of ``Randomness.for_step``
+   at three steps, at the flagship's shapes (the later steps' masks at
+   slices); and the host cost per iteration of the draws the CPU makes;
+5. cuda_vs_cpu: two flagship iterations at dim 16 on the card and on the
+   CPU with the same draws, in fp32 (TF32 off) and in bf16, substep by
+   substep from the same state, losses, gradients and updated params
+   compared; in bf16 first G and D on one batch;
+6. train: the flagship app (``apps.ct_gan_cifar_resnet.main``) at its
+   defaults (bf16 on the card) and full width for 10 iterations in a
+   temporary ``out_dir``, through the train loop: checkpoints every 5
+   iterations, a sample grid and the dev cost every 5, IS and FID at
+   iteration 9 over 5,000 generated images (cut from 50,000 for time) with
+   a TrainedScorer fitted on the card; the files are checked and the grids
+   decoded.  Then ``main`` again with ``ITERS=12`` in the same directory,
+   which must resume at iteration 10.  Then the same 10 iterations with
+   ``BF16=False`` (fp32), and 4 iterations with ``NORMALIZATION_D=True``.
+   Each kernel's launches are counted in each call;
+7. resume_equal: at dim 16, with cuDNN deterministic, 4 iterations
+   uninterrupted against 2 + checkpoint + a fresh trainer + 2, in fp32 and
+   in bf16;
+8. jax_checkpoint: the JAX package's dim-128 checkpoint
    ``runs/flagship_fused_r4/ckpt/ckpt_25000.npz`` and its scorer
    ``scorer.npz`` (sha256 printed) loaded into the port; the app's
    ``test_fn`` as the JAX app ran it at iteration 24999 (dev cost, IS over
-   50,000 samples in chunks of 5,000, FID on 10,000), each beside the JAX
-   run's logged value, with ``|IS - 9.70838| <= 0.30`` as the gate against
-   layout and loading errors, and the dev cost's spread over 8 other
-   seeds of its draws; then ``apps.generate`` on the same checkpoint: a
-   100-sample grid, and ``--batch 1024 --serve_iters 20``.
+   50,000 samples in chunks of 5,000, FID on 10,000), in bf16 and in fp32,
+   each beside the JAX run's logged value, with ``|IS - 9.70838| <= 0.30``
+   as the gate against layout and loading errors, and the dev cost's spread
+   over 8 other seeds of its draws; then ``apps.generate`` on the same
+   checkpoint: a 100-sample grid, and ``--batch 1024 --serve_iters 20`` in
+   fp32 and with ``--bf16``.
 
 The last lines are the card, the kernel record and ``{"ok": true, ...}``.
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -65,10 +76,17 @@ import torch
 from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
 from ctgan_tpu_torch.apps import generate
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
-from ctgan_tpu_torch.core import Randomness, split_params
+from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
 from ctgan_tpu_torch.data import DeviceSampler
 from ctgan_tpu_torch.eval import TrainedScorer
-from ctgan_tpu_torch.kernels import SOURCES, dropout_mask, dropout_mask_reference
+from ctgan_tpu_torch.kernels import (
+    SOURCES,
+    dropout_mask,
+    dropout_mask_reference,
+    philox_uniform,
+    philox_uniform_reference,
+)
+from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10
 from ctgan_tpu_torch.kernels.build import build_libraries
 from ctgan_tpu_torch.models import resnet_cifar
 from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
@@ -84,6 +102,14 @@ JAX_RUN = ROOT / "runs" / "flagship_fused_r4"
 JAX_LOGGED = {"inception_50k": 9.70838, "fid_10k": 0.23079, "dev_cost": -0.80976}
 IS_GATE = 0.30
 DEV_COST_SEEDS = range(2, 10)
+U = 2.0 ** -8  # bf16's unit roundoff
+BF16_BOUND = 4 * U  # bf16 on the card against bf16 on the CPU: the same roundings, other sums
+# A substep's gradients, card against CPU: L1 distance over the CPU's L1 mass.  In bf16 a change
+# below a sum's roundoff flips later bf16 roundings: 0.071 on an H100 (PERF.md); about twice that.
+BF16_GRAD_BOUND = 32 * U
+# In fp32 only a ReLU on its threshold moves them: 6.3e-3 on an H100 (PERF.md); about three times that.
+FP32_GRAD_BOUND = 2e-2
+FP32_FLIP_BOUND = 1e-3  # fp32: gradient mass of the elements stepping the other way (1.4e-5 on an H100)
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -135,10 +161,22 @@ def _time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def phase_kernel(device) -> dict:
+def dequant_shapes(batch: int = 64, n_dev: int = 640):
+    """Shapes of the dequantisation noise: a critic batch, the dev batch."""
+    return [(batch, 3072), (n_dev, 3072)]
+
+
+def _bound_ms(n_bytes: int) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _check_masks(device, seed: int) -> float:
     max_err = 0.0
-    seed = 12345
-    for shape in flagship_mask_shapes():
+    for shape in flagship_mask_shapes() + dev_cost_mask_shapes():
         n = math.prod(shape)
         for dtype in (torch.float32, torch.bfloat16):
             for kp in (0.8, 0.5):
@@ -157,93 +195,341 @@ def phase_kernel(device) -> dict:
                 torch.cuda.synchronize()
                 if not torch.equal(again, got) or torch.equal(other, got):
                     raise AssertionError("mask not determined by its seed")
-    for shape in dev_cost_mask_shapes():
-        for kp in (0.8, 0.5):
-            got = dropout_mask(seed, shape, kp, torch.float32, device)
-            torch.cuda.synchronize()
-            want = dropout_mask_reference(seed, shape, kp, torch.float32, device)
-            max_err = max(max_err, float((got - want).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain version at {shape} fp32 kp {kp}")
-            del got, want
+                del got, want, again, other
     tail = dropout_mask(7, (1001,), 0.5, torch.bfloat16, device)  # ragged tail
     if not torch.equal(tail, dropout_mask_reference(7, (1001,), 0.5, torch.bfloat16, device)):
         raise AssertionError("kernel != plain version on a ragged tail")
+    return max_err
 
-    times = {}
-    for shape in flagship_mask_shapes():
+
+def _check_uniforms(device, seed: int) -> float:
+    max_err = 0.0
+    for shape in dequant_shapes() + [(1001,)]:
+        got = philox_uniform(seed, shape, 1 / 128, device)
+        torch.cuda.synchronize()
+        want = philox_uniform_reference(seed, shape, 1 / 128, device)
+        max_err = max(max_err, float((got - want).abs().max()))
+        if not torch.equal(got, want) or not torch.equal(got.cpu(), philox_uniform_reference(seed, shape, 1 / 128)):
+            raise AssertionError(f"philox_uniform != plain version at {shape}")
+        if float(got.min()) < 0 or float(got.max()) >= 1 / 128:
+            raise AssertionError(f"philox_uniform outside [0, 1/128) at {shape}")
+        n = got.numel()
+        if abs(float(got.double().mean()) * 128 - 0.5) > 5 * math.sqrt(1 / 12 / n):
+            raise AssertionError(f"philox_uniform mean {float(got.double().mean())} at {shape}")
+    return max_err
+
+
+def phase_kernel(device) -> list[dict]:
+    """Both kernels bit for bit against their plain versions, then timed.
+    Returns each kernel's record for the ``kernels`` line (launches are
+    added by ``main``)."""
+    seed = 12345
+    mask_err = _check_masks(device, seed)
+    uniform_err = _check_uniforms(device, seed)
+
+    times, bounds = {}, {}
+    for shape in flagship_mask_shapes() + dev_cost_mask_shapes():
         for dtype in (torch.float32, torch.bfloat16):
-            times[f"{list(shape)} {str(dtype)[6:]}"] = _time_ms(
-                lambda: dropout_mask(seed, shape, 0.5, dtype, device), 200)
-    for shape in dev_cost_mask_shapes():
-        times[f"{list(shape)} float32"] = _time_ms(
-            lambda: dropout_mask(seed, shape, 0.5, torch.float32, device), 100)
+            key = f"{list(shape)} {_dtype_name(dtype)}"
+            times[key] = _time_ms(lambda: dropout_mask(seed, shape, 0.5, dtype, device),
+                                  200 if shape[0] <= 256 else 100)
+            bounds[key] = _bound_ms(math.prod(shape) * dtype.itemsize)
+    for shape in dequant_shapes():
+        key = f"{list(shape)} float32 uniform"
+        times[key] = _time_ms(lambda: philox_uniform(seed, shape, 1 / 128, device), 200)
+        bounds[key] = _bound_ms(math.prod(shape) * 4)
     print("kernel_ms " + json.dumps(times))
-    print("kernel_byte_bound_ms " + json.dumps({
-        f"{list(s)} float32": math.prod(s) * 4 / HBM_BYTES_PER_S * 1e3
-        for s in flagship_mask_shapes() + dev_cost_mask_shapes()}))
-    shape = flagship_mask_shapes()[1]  # the largest: the fused CT pair
-    n = math.prod(shape)
-    ms = times[f"{list(shape)} float32"]
-    plain_ms = _time_ms(lambda: dropout_mask_reference(seed, shape, 0.5, torch.float32, device), 10)
-    library_ms = _time_ms(lambda: torch.empty(shape, device=device).bernoulli_(0.5), 200)
-    bound_ms = n * 4 / HBM_BYTES_PER_S * 1e3
-    print(f"dropout_mask {list(shape)} fp32: {ms:.5f} ms (byte bound {bound_ms:.5f} ms), "
-          f"plain {plain_ms:.5f} ms, bernoulli_ {library_ms:.5f} ms")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms)
+    print("kernel_byte_bound_ms " + json.dumps(bounds))
+
+    records = []
+    shape = flagship_mask_shapes()[1]  # the largest training mask: the fused CT pair
+    library = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        library[dtype] = _time_ms(lambda: torch.empty(shape, dtype=dtype, device=device).bernoulli_(0.5), 200)
+    plain_ms = _time_ms(lambda: dropout_mask_reference(seed, shape, 0.5, torch.bfloat16, device), 10)
+    key = f"{list(shape)} bfloat16"
+    print(f"dropout_mask {list(shape)}: bf16 {times[key]:.5f} ms (byte bound {bounds[key]:.5f} ms), "
+          f"fp32 {times[f'{list(shape)} float32']:.5f} ms; plain (bf16) {plain_ms:.5f} ms; "
+          f"bernoulli_ bf16 {library[torch.bfloat16]:.5f} ms, fp32 {library[torch.float32]:.5f} ms")
+    records.append(dict(
+        name="dropout_mask", route="cuda", source="ctgan_tpu_torch/csrc/dropout_mask.cu",
+        replaces="ctgan_tpu/kernels/dropout.py:35", max_abs_err=mask_err, ms=times[key], plain_ms=plain_ms,
+        bound_ms=bounds[key], bound_by="bytes", library_ms=library[torch.bfloat16]))
+
+    shape = dequant_shapes()[0]  # one critic substep's dequantisation noise
+    key = f"{list(shape)} float32 uniform"
+    plain_ms = _time_ms(lambda: philox_uniform_reference(seed, shape, 1 / 128, device), 10)
+    library_ms = _time_ms(lambda: torch.empty(shape, device=device).uniform_(0, 1 / 128), 200)
+    print(f"philox_uniform {list(shape)}: {times[key]:.5f} ms (byte bound {bounds[key]:.5f} ms); "
+          f"plain {plain_ms:.5f} ms; uniform_ {library_ms:.5f} ms")
+    records.append(dict(
+        name="philox_uniform", route="cuda", source="ctgan_tpu_torch/csrc/dropout_mask.cu",
+        replaces="ctgan_tpu/train/trainer_acgan.py:228", max_abs_err=uniform_err, ms=times[key],
+        plain_ms=plain_ms, bound_ms=bounds[key], bound_by="bytes", library_ms=library_ms))
+    return records
 
 
-def _small_run(device, params, *, dim, batch, n_critic, iters, seed):
-    mcfg = resnet_cifar.ResnetCifarConfig(dim_g=dim, dim_d=dim)
+def _iteration_draws(rand, device, cfg: app.Config) -> list:
+    """Every draw of one flagship iteration, in the trainer's order (bf16
+    masks, the default): the G substep's labels, noise and 3 masks; each
+    critic substep's dequantisation noise, the fakes' noise, the CT pair's 3
+    masks, the GP alphas and the GP pass's 3 masks."""
+    g_shape, pair, gp = flagship_mask_shapes(cfg.DIM_D, cfg.BATCH_SIZE, cfg.GEN_BS_MULTIPLE)
+    masks = lambda shape: [rand.dropout_mask(shape, kp, torch.bfloat16, device) for kp in (0.8, 0.5, 0.5)]
+    out = [rand.labels(g_shape[0], 10), rand.noise(g_shape[0], 128), *masks(g_shape)]
+    for _ in range(cfg.N_CRITIC):
+        out += [rand.dequant((cfg.BATCH_SIZE, 3072)), rand.noise(cfg.BATCH_SIZE, 128), *masks(pair)]
+        out += [rand.gp_alpha(cfg.BATCH_SIZE), *masks(gp)]
+    return out
+
+
+class _MaskSeeds:
+    """``rand`` with its dropout masks left undrawn: each mask takes its
+    Philox seed in its turn, as the provider would, and comes back as
+    ``(seed, shape, keep_prob, dtype)``."""
+
+    def __init__(self, rand: Randomness):
+        self.rand = rand
+
+    def __getattr__(self, kind):
+        return getattr(self.rand, kind)
+
+    def dropout_mask(self, shape, keep_prob, dtype, device):
+        return (self.rand._seed(), tuple(shape), keep_prob, dtype)
+
+
+def plain_mask_at(seed: int, keep_prob: float, dtype: torch.dtype, index: torch.Tensor) -> torch.Tensor:
+    """Elements ``index`` of the flattened plain mask of ``seed``: element
+    ``i`` is word ``i % 4`` of Philox on counter ``i // 4``."""
+    bits = philox4x32_10(index // 4, seed).gather(-1, (index % 4)[:, None])[:, 0]
+    scale = torch.tensor(np.float32(1.0 / keep_prob))
+    return torch.where(bits < keep_threshold(keep_prob), scale, torch.zeros(())).to(dtype)
+
+
+def _slice_index(n: int, k: int = 8192) -> torch.Tensor:
+    """The first and last ``k`` of ``n`` elements and ``k`` spread between."""
+    return torch.unique(torch.cat([torch.arange(min(k, n)), torch.arange(max(n - k, 0), n),
+                                   torch.arange(0, n, max(n // k, 1))]))
+
+
+def phase_draws(device, seed: int = 0, cfg: app.Config | None = None) -> dict:
+    """The flagship run's draws on the card against the CPU, bit for bit:
+    the sampler's permutations of epochs 0 and 1 (50,000 examples) and
+    every draw of ``Randomness(seed).for_step(k)`` for the first two
+    iterations and the first of epoch 1.  Iteration 0's masks are compared
+    whole; the later ones at ``_slice_index`` of each mask, from the plain
+    Philox at those elements (``plain_mask_at``), which bounds the CPU's
+    work (the kernel phase holds whole masks at every shape).  Then the
+    host's cost per iteration of the draws the CPU makes (noise, labels, GP
+    alphas, each copied from pinned memory)."""
+    device = torch.device(device)
+    cfg = cfg or app.Config()
+    arrays = [np.zeros((cfg.n_examples, 1), np.uint8)]
+    samplers = [DeviceSampler(arrays, cfg.BATCH_SIZE, cfg.N_CRITIC, seed=seed, device=d) for d in (device, "cpu")]
+    for epoch in (0, 1):
+        got, want = (s.epoch_perm(epoch) for s in samplers)
+        if got.device.type != device.type or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"epoch {epoch}'s permutation differs between {device} and cpu")
+    steps = (0, 1, samplers[1].iters_per_epoch)
+    n_draws = n_sliced = 0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the plain Philox's int64 ops ran slower on more threads
+    try:
+        for step in steps:
+            got = _iteration_draws(Randomness(seed, device).for_step(step), device, cfg)
+            cpu = Randomness(seed, "cpu").for_step(step)
+            want = _iteration_draws(cpu if step == 0 else _MaskSeeds(cpu), "cpu", cfg)
+            for i, (g, w) in enumerate(zip(got, want)):
+                if isinstance(w, tuple):
+                    mask_seed, shape, kp, dtype = w
+                    index = _slice_index(math.prod(shape))
+                    g = g.reshape(-1)[index.to(device)]
+                    w = plain_mask_at(mask_seed, kp, dtype, index)
+                    n_sliced += 1
+                if g.device.type != device.type or g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+                    raise AssertionError(f"draw {i} of step {step} differs between {device} and cpu")
+            n_draws += len(want)
+    finally:
+        torch.set_num_threads(threads)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    reps = 20
+    sync()
+    t0 = time.perf_counter()
+    for step in range(reps):
+        rand = Randomness(seed, device).for_step(step)
+        rand.labels(cfg.GEN_BS_MULTIPLE * cfg.BATCH_SIZE, 10)
+        rand.noise(cfg.GEN_BS_MULTIPLE * cfg.BATCH_SIZE, 128)
+        for _ in range(cfg.N_CRITIC):
+            rand.noise(cfg.BATCH_SIZE, 128)
+            rand.gp_alpha(cfg.BATCH_SIZE)
+    sync()
+    host_small_ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"draws: {n_draws} draws at steps {list(steps)} ({n_sliced} masks compared at slices) and 2 epoch "
+          f"permutations equal on {device} and cpu; host ms per iteration for noise, labels and GP alphas "
+          f"{host_small_ms:.3f}")
+    return dict(n_draws=n_draws, n_sliced=n_sliced, host_small_ms=host_small_ms)
+
+
+def _copy_state(state, device):
+    """A copy of a trainer state on ``device`` (never sharing storage)."""
+    params = lambda p: {k: v.detach().to(device, copy=True).requires_grad_(True) for k, v in p.items()}
+    opt = lambda o: {"m": {k: v.to(device, copy=True) for k, v in o["m"].items()},
+                     "v": {k: v.to(device, copy=True) for k, v in o["v"].items()}, "t": o["t"]}
+    return type(state)(params(state.gen_params), params(state.disc_params), opt(state.gen_opt),
+                       opt(state.disc_opt), state.step)
+
+
+def _lockstep(device, params, mcfg, acfg: AcganConfig, *, iters, seed, check) -> None:
+    """``iters`` flagship iterations on the CPU, substep by substep; before
+    each substep the CPU's state is copied to ``device`` and the substep
+    runs there too, with the same draws (two providers of one seed, asked
+    in the same order).  ``check(network, state_before, dev_state,
+    cpu_state, dev_metrics, cpu_metrics)`` compares the two after each
+    substep, so a difference is held to one substep and not carried into
+    the next."""
     trainer = AcganTrainer(
         lambda p, n, labels, rand, noise=None: resnet_cifar.generator(p, n, labels, mcfg, rand, noise=noise),
         lambda p, x, labels, kps, rand: resnet_cifar.discriminator(p, x, labels, kps, mcfg, rand),
-        AcganConfig(batch_size=batch, critic_iters=n_critic, iters=100),
+        acfg,
     )
-    tensors = {k: v.to(device) for k, v in from_jax_params(params).items()}
-    gen, disc, _ = split_params(tensors, "Generator", "Discriminator")
+    gen, disc, _ = split_params(from_jax_params(params), "Generator", "Discriminator")
     state = trainer.init_state(gen, disc)
     data = np.random.default_rng(seed)
-    rand = Randomness(seed, device, generator_device="cpu")
-    metrics = []
+    rand_dev, rand_cpu = Randomness(seed, device), Randomness(seed, "cpu")
+    n_critic, batch = acfg.critic_iters, acfg.batch_size
     for _ in range(iters):
         real = torch.from_numpy(data.integers(0, 256, (n_critic, batch, 3072), dtype=np.uint8))
         labels = torch.from_numpy(data.integers(0, 10, (n_critic, batch)))
-        m = trainer.step(state, real.to(device), labels.to(device), rand)
-        metrics.append({k: float(v) for k, v in m.items()})
-    params = {k: v.detach().cpu().numpy() for k, v in {**state.gen_params, **state.disc_params}.items()}
-    return params, metrics, trainer.cfg.lr
+        before, dev = _copy_state(state, "cpu"), _copy_state(state, device)
+        got = {"gen_cost": trainer.gen_substep(dev, rand_dev)}
+        want = {"gen_cost": trainer.gen_substep(state, rand_cpu)}
+        check("gen", before, dev, state, got, want)
+        for i in range(n_critic):
+            before, dev = _copy_state(state, "cpu"), _copy_state(state, device)
+            got = trainer.critic_substep(dev, real[i].to(device), labels[i].to(device), rand_dev)
+            want = trainer.critic_substep(state, real[i], labels[i], rand_cpu)
+            check("disc", before, dev, state, got, want)
+        state.step += 1
 
 
-def phase_cuda_vs_cpu(device, *, dim=16, batch=4, n_critic=2, iters=2, seed=0) -> float:
-    """``iters`` iterations from the same fresh params and draws on
-    ``device`` and on the CPU, with TF32 off.  Metrics to rtol 1e-3; params
-    by ``adam_mismatches`` (atol 1e-6, 2 * lr allowance for Adam steps on
-    gradients that are zero up to rounding).  Returns the largest param
-    difference."""
-    params = resnet_cifar.init_params(resnet_cifar.ResnetCifarConfig(dim_g=dim, dim_d=dim), seed)
-    old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        got, got_m, lr = _small_run(device, params, dim=dim, batch=batch, n_critic=n_critic,
-                                    iters=iters, seed=seed)
-    finally:
-        torch.backends.cudnn.allow_tf32 = old[0]
-        torch.set_float32_matmul_precision(old[1])
-    want, want_m, _ = _small_run("cpu", params, dim=dim, batch=batch, n_critic=n_critic,
-                                 iters=iters, seed=seed)
-    for g, w in zip(got_m, want_m):
-        for k in w:
-            if not math.isclose(g[k], w[k], rel_tol=1e-3, abs_tol=1e-5):
-                raise AssertionError(f"metric {k}: {g[k]} on {device} vs {w[k]} on cpu")
-    zero_grad = resnet_cifar.zero_grad_params(resnet_cifar.ResnetCifarConfig(dim_g=dim, dim_d=dim))
-    bad = adam_mismatches(got, want, lr=lr, n_updates=iters * n_critic, zero_grad=zero_grad)
-    if bad:
-        raise AssertionError(f"params on {device} vs cpu: {bad}")
-    diff = max(float(np.abs(got[k] - want[k]).max()) for k in want)
-    print(f"{device} vs cpu after {iters} iterations: max param diff {diff:.3g}")
-    return diff
+def _one_batch(device, params, mcfg, seed: int) -> list[torch.Tensor]:
+    """G's samples from fixed noise and labels, and D's outputs on them."""
+    data = np.random.default_rng(seed)
+    noise = torch.from_numpy(data.normal(size=(8, 128)).astype(np.float32)).to(device)
+    labels = torch.from_numpy(data.integers(0, 10, 8)).to(device)
+    tensors = {k: v.to(device) for k, v in from_jax_params(params).items()}
+    rand = Randomness(seed, device)
+    with torch.no_grad():
+        fake = resnet_cifar.generator(tensors, 8, labels, mcfg, rand, noise=noise)
+        out = resnet_cifar.discriminator(tensors, fake, labels, (0.8, 0.5, 0.5), mcfg, rand)
+    return [t.float().cpu() for t in (fake, *out)]
+
+
+def phase_cuda_vs_cpu(device, *, precision="float32", dim=16, batch=4, n_critic=2, iters=2,
+                      seed=0) -> float:
+    """``iters`` iterations on ``device`` against the CPU with the same
+    draws, under ``precision``, each substep from the same state
+    (``_lockstep``): a rounding difference that flips the sign of a tiny
+    gradient moves that parameter by 2 lr, and carried into the next
+    substeps it moves every later gradient.  Per substep the losses, the
+    gradient (TF-Adam's first moment holds it at beta1 = 0) and the
+    updated params are compared:
+
+    * fp32, with TF32 off: the losses to rtol 1e-3.  In iteration 0 (the
+      two D updates from the initial state) the params by
+      ``adam_mismatches`` (atol 1e-6, 2 * lr allowance for Adam steps on
+      gradients that are zero up to rounding).  In every substep the L1
+      distance of the gradients within ``FP32_GRAD_BOUND`` of the CPU
+      gradient's L1 mass, and the elements that stepped the other way
+      carrying at most ``FP32_FLIP_BOUND`` of it.  Not elementwise after
+      iteration 0: there a ReLU input of this dim-16 run lies within 1e-6
+      of zero, cuDNN's forward, 1e-7 from the CPU's, switches it, as a 1e-6
+      perturbation of the CPU's own forward does, and G's gradient moves
+      by 2.5% of its largest element (measured on an H100 and reproduced on
+      the CPU; PERF.md).
+    * bf16: first G's samples and D's outputs on one batch, each within
+      ``BF16_BOUND`` (4 bf16 roundoffs) of its largest magnitude: the two
+      devices round at the same points and sum in other orders.  Then the
+      losses to ``BF16_BOUND`` relative (absolute for the WGAN difference;
+      the accuracies are left out, a rounding can move an argmax), the
+      gradients' L1 distance within ``BF16_GRAD_BOUND`` of the CPU
+      gradient's mass, and the elements that stepped the other way carrying
+      at most ``BF16_BOUND`` of it: in bf16 a gradient smaller than its
+      rounding error may take either sign.
+
+    Every substep runs before a failure is raised, so the message holds
+    the largest shares.  Returns the largest param difference."""
+    mcfg = resnet_cifar.ResnetCifarConfig(dim_g=dim, dim_d=dim)
+    acfg = AcganConfig(batch_size=batch, critic_iters=n_critic, iters=100)
+    params = resnet_cifar.init_params(mcfg, seed)
+    bf16 = precision == "bfloat16"
+    tol = dict(rel_tol=BF16_BOUND, abs_tol=BF16_BOUND) if bf16 else dict(rel_tol=1e-3, abs_tol=1e-5)
+    grad_bound, flip_bound = (BF16_GRAD_BOUND, BF16_BOUND) if bf16 else (FP32_GRAD_BOUND, FP32_FLIP_BOUND)
+    zero_grad = resnet_cifar.zero_grad_params(mcfg)
+    report = {"diff": 0.0, "moved": 0, "total": 0, "grad_l1": 0.0, "flipped_mass": 0.0}
+    failures = []
+
+    def check(network, before, dev, cpu, got, want):
+        at = f"{network} substep at step {cpu.step}"
+        for k, w in want.items():
+            if bf16 and k.startswith("acc_"):
+                continue
+            if not math.isclose(float(got[k]), float(w), **tol):
+                failures.append(f"{at}: {k} {float(got[k])} on {device} vs {float(w)} on cpu")
+        if network == "gen" and cpu.step == 0:
+            return  # the G update of step 0 is dropped
+        field, opt = ("gen_params", "gen_opt") if network == "gen" else ("disc_params", "disc_opt")
+        ours = {k: v.detach().cpu().numpy() for k, v in getattr(dev, field).items()}
+        theirs = {k: v.detach().numpy() for k, v in getattr(cpu, field).items()}
+        start = {k: v.detach().numpy() for k, v in getattr(before, field).items()}
+        grads_dev, grads = getattr(dev, opt)["m"], getattr(cpu, opt)["m"]
+        if not bf16 and cpu.step == 0:
+            bad = adam_mismatches(ours, theirs, lr=acfg.lr, n_updates=1, zero_grad=zero_grad)
+            if bad:
+                failures.append(f"{at}: params {bad}")
+        mass = flipped = grad_l1 = 0.0
+        for k in theirs:
+            diff = np.abs(ours[k] - theirs[k])
+            report["diff"] = max(report["diff"], float(diff.max()))
+            report["moved"] += int(np.sum(diff > 1e-6))
+            report["total"] += diff.size
+            other_way = np.sign(ours[k] - start[k]) != np.sign(theirs[k] - start[k])
+            g = grads[k].numpy().astype(np.float64)
+            grad_l1 += float(np.sum(np.abs(grads_dev[k].cpu().numpy().astype(np.float64) - g)))
+            flipped += float(np.sum(np.abs(g[other_way])))
+            mass += float(np.sum(np.abs(g)))
+        report["grad_l1"] = max(report["grad_l1"], grad_l1 / mass)
+        report["flipped_mass"] = max(report["flipped_mass"], flipped / mass)
+        if grad_l1 > grad_bound * mass:
+            failures.append(f"{at}: gradients {grad_l1 / mass:.3g} of the CPU's L1 mass apart (> {grad_bound:.3g})")
+        if flipped > flip_bound * mass:
+            failures.append(f"{at}: elements carrying {flipped / mass:.3g} of the gradient's mass stepped "
+                            f"the other way (> {flip_bound:.3g})")
+
+    with precision_policy(precision):
+        if bf16:
+            for i, (g, w) in enumerate(zip(_one_batch(device, params, mcfg, seed),
+                                           _one_batch("cpu", params, mcfg, seed))):
+                dev = float((g - w).abs().max() / w.abs().max())
+                if dev > BF16_BOUND:
+                    raise AssertionError(f"bf16 output {i} on {device} vs cpu: {dev:.3g} of its scale")
+        old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        try:
+            _lockstep(device, params, mcfg, acfg, iters=iters, seed=seed, check=check)
+        finally:
+            torch.backends.cudnn.allow_tf32 = old[0]
+            torch.set_float32_matmul_precision(old[1])
+    line = (f"{device} vs cpu in {precision}, {iters} iterations substep by substep: max param diff "
+            f"{report['diff']:.3g}, {report['moved'] / max(report['total'], 1):.5f} of the updated elements "
+            f"beyond 1e-6; at most {report['grad_l1']:.3g} of a substep's gradient mass apart, "
+            f"{report['flipped_mass']:.3g} stepping the other way")
+    print(line)
+    if failures:
+        raise AssertionError(f"{line}\n" + "\n".join(failures))
+    return report["diff"]
 
 
 class _Tee(io.TextIOBase):
@@ -261,14 +547,16 @@ class _Tee(io.TextIOBase):
 
 
 def _run_main(cfg: app.Config, device) -> tuple:
-    """``app.main`` with the kernel's launches counted and stdout kept.
-    Returns (state, records, launches, stdout, seconds)."""
-    dropout_mask.launches = 0
+    """``app.main`` with the kernels' launches counted and stdout kept.
+    Returns (state, records, launches of the mask kernel, launches of the
+    uniform kernel, stdout, seconds)."""
+    dropout_mask.launches = philox_uniform.launches = 0
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         state, records = app.main(cfg=cfg, device=device)
-    return state, records, dropout_mask.launches, tee.buf.getvalue(), time.perf_counter() - t0
+    return (state, records, dropout_mask.launches, philox_uniform.launches, tee.buf.getvalue(),
+            time.perf_counter() - t0)
 
 
 def _test_iterations(cfg: app.Config, start: int) -> list[int]:
@@ -282,6 +570,14 @@ def _expected_launches(cfg: app.Config, start: int, device) -> int:
     if torch.device(device).type != "cuda":
         return 0
     return (cfg.ITERS - start) * (3 + 6 * cfg.N_CRITIC) + 6 * len(_test_iterations(cfg, start))
+
+
+def _expected_uniform_launches(cfg: app.Config, start: int, device) -> int:
+    """The dequantisation noise: one draw per critic substep and one per
+    test_fn's dev cost."""
+    if torch.device(device).type != "cuda":
+        return 0
+    return (cfg.ITERS - start) * cfg.N_CRITIC + len(_test_iterations(cfg, start))
 
 
 def decode_png(path) -> np.ndarray:
@@ -318,11 +614,14 @@ def phase_train(device, cfg: app.Config) -> dict:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state, records, launches, stdout, seconds = _run_main(cfg, device)
+    state, records, launches, uniforms, stdout, seconds = _run_main(cfg, device)
     fit = re.search(r"IS scorer: fitted in ([0-9.]+) s", stdout)
-    expected = _expected_launches(cfg, 0, device)
-    if launches != expected:
-        raise AssertionError(f"dropout_mask launched {launches} times, expected {expected}")
+    expected = (_expected_launches(cfg, 0, device), _expected_uniform_launches(cfg, 0, device))
+    if (launches, uniforms) != expected:
+        raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times, "
+                             f"expected {expected}")
+    if cfg.NORMALIZATION_D != ("Discriminator.2.N1.scale" in state.disc_params):
+        raise AssertionError("D's layer norms do not follow NORMALIZATION_D")
     out = Path(cfg.out_dir)
     saves = list(range(cfg.save_every, cfg.ITERS + 1, cfg.save_every))
     tests = _test_iterations(cfg, 0)
@@ -349,11 +648,15 @@ def phase_train(device, cfg: app.Config) -> dict:
     with torch.no_grad():
         labels = torch.arange(100, device=device) % 10
         samples = resnet_cifar.generator(state.gen_params, 100, labels, mcfg, Randomness(1, device))
+    want_dtype = torch.bfloat16 if cfg.BF16 and device.type == "cuda" else torch.float32
+    if samples.dtype != want_dtype:
+        raise AssertionError(f"generator samples are {samples.dtype}, not {want_dtype}")
     if samples.shape != (100, 3072) or not bool(torch.isfinite(samples).all()) or samples.abs().max() > 1:
         raise AssertionError("generator samples are not finite [100, 3072] values in [-1, 1]")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     steps = [r["time"] for r in records if 1 <= r["iteration"] <= 3]
-    return dict(launches=launches, s_per_iter=float(np.mean(steps)) if steps else None,
+    return dict(launches=launches, uniform_launches=uniforms,
+                s_per_iter=float(np.mean(steps)) if steps else None,
                 peak_bytes=peak, last=last, seconds=seconds, evals=evals,
                 scorer_fit_s=float(fit.group(1)) if fit else None)
 
@@ -363,23 +666,25 @@ def phase_resume(device, cfg: app.Config) -> dict:
     resume where the last checkpoint left off and train on."""
     start = cfg.ITERS - cfg.ITERS % cfg.save_every if cfg.save_every else 0
     more = dataclasses.replace(cfg, ITERS=cfg.ITERS + (RESUME_ITERS - TRAIN_ITERS))
-    state, records, launches, stdout, seconds = _run_main(more, device)
+    state, records, launches, uniforms, stdout, seconds = _run_main(more, device)
     want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
     if want not in stdout:
         raise AssertionError(f"no line {want!r} in the resumed run's output")
-    expected = _expected_launches(more, start, device)
-    if launches != expected:
-        raise AssertionError(f"dropout_mask launched {launches} times on resume, expected {expected}")
+    expected = (_expected_launches(more, start, device), _expected_uniform_launches(more, start, device))
+    if (launches, uniforms) != expected:
+        raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times on "
+                             f"resume, expected {expected}")
     if state.step != more.ITERS or records[-1]["iteration"] != more.ITERS - 1:
         raise AssertionError(f"resumed run ended at step {state.step}, records {records[-1]}")
-    return dict(launches=launches, seconds=seconds, start=start, line=want)
+    return dict(launches=launches, uniform_launches=uniforms, seconds=seconds, start=start, line=want)
 
 
-def phase_resume_equal(device, *, dim=16, batch=4, n_critic=2, iters=4, seed=0) -> float:
+def phase_resume_equal(device, *, precision="float32", dim=16, batch=4, n_critic=2, iters=4,
+                       seed=0) -> float:
     """``iters`` iterations uninterrupted, against ``iters // 2``, a
     checkpoint written and read back into a fresh trainer, and the rest;
-    cuDNN deterministic.  Params by ``adam_mismatches``.  Returns the
-    largest param difference."""
+    cuDNN deterministic, under ``precision``.  Params by
+    ``adam_mismatches``.  Returns the largest param difference."""
     device = torch.device(device)
     mcfg = resnet_cifar.ResnetCifarConfig(dim_g=dim, dim_d=dim)
     params = resnet_cifar.init_params(mcfg, seed)
@@ -404,20 +709,21 @@ def phase_resume_equal(device, *, dim=16, batch=4, n_critic=2, iters=4, seed=0) 
         for it in range(start, stop):
             trainer.step(state, *sampler.sample(it), rand.for_step(state.step))
 
-    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
-        trainer, whole = fresh()
-        run(trainer, whole, 0, iters)
-        trainer, first = fresh()
-        run(trainer, first, 0, iters // 2)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
-            path = save_checkpoint(os.path.join(tmp, "ckpt.npz"), {"state": state_to_jax(first)})
-            trainer, _ = fresh()
-            resumed = state_from_jax(load_checkpoint(path)["state"], device)
-        run(trainer, resumed, iters // 2, iters)
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    with precision_policy(precision):
+        old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            trainer, whole = fresh()
+            run(trainer, whole, 0, iters)
+            trainer, first = fresh()
+            run(trainer, first, 0, iters // 2)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+                path = save_checkpoint(os.path.join(tmp, "ckpt.npz"), {"state": state_to_jax(first)})
+                trainer, _ = fresh()
+                resumed = state_from_jax(load_checkpoint(path)["state"], device)
+            run(trainer, resumed, iters // 2, iters)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
     got = state_to_jax(resumed)
     want = state_to_jax(whole)
     got_p = {**got["gen_params"], **got["disc_params"]}
@@ -427,8 +733,8 @@ def phase_resume_equal(device, *, dim=16, batch=4, n_critic=2, iters=4, seed=0) 
     if bad or not int(got["step"]) == int(want["step"]) == iters:
         raise AssertionError(f"resumed run differs from the uninterrupted one: {bad}")
     diff = max(float(np.abs(got_p[k] - want_p[k]).max()) for k in want_p)
-    print(f"resume_equal on {device}: {iters // 2} + checkpoint + {iters - iters // 2} iterations "
-          f"vs {iters}: max param diff {diff:.3g}")
+    print(f"resume_equal on {device} in {precision}: {iters // 2} + checkpoint + "
+          f"{iters - iters // 2} iterations vs {iters}: max param diff {diff:.3g}")
     return diff
 
 
@@ -436,10 +742,26 @@ def _sha256(path: Path) -> str:
     return hashlib.sha256(path.read_bytes()).hexdigest()
 
 
+def _score(test_fn, state, device) -> dict:
+    """``test_fn`` at iteration 24998 (dev cost and grid) and 24999 (with
+    IS and FID), timed, under the precision policy in force."""
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    quick = test_fn(state, 24998)  # returns host floats: synchronised
+    test_s = time.perf_counter() - t0
+    test_peak = torch.cuda.max_memory_allocated(device) - base
+    t0 = time.perf_counter()
+    full = test_fn(state, 24999)
+    return dict(quick=quick, eval=full, test_s=test_s, eval_s=time.perf_counter() - t0,
+                test_peak_bytes=test_peak)
+
+
 def phase_jax_checkpoint(device, out_dir: str) -> dict:
     """The JAX run's dim-128 checkpoint scored by the port as the JAX app
-    scored it at iteration 24999; then ``apps.generate`` on it.  Card
-    only."""
+    scored it at iteration 24999, in bf16 (the app's default on the card;
+    the JAX run too scored in bf16) and in fp32; then ``apps.generate`` on
+    it, in fp32 and with ``--bf16``.  Card only."""
     device = torch.device(device)
     ckpt, scorer_path = JAX_RUN / "ckpt" / "ckpt_25000.npz", JAX_RUN / "scorer.npz"
     for path in (ckpt, scorer_path):
@@ -458,54 +780,65 @@ def phase_jax_checkpoint(device, out_dir: str) -> dict:
     scorer = TrainedScorer(3, 32, cache_path=str(scorer_path), device=device)
     test_fn = app.make_test_fn(cfg, flagship, scorer, out_dir)
 
-    dropout_mask.launches = 0
-    torch.cuda.reset_peak_memory_stats(device)
-    base = torch.cuda.memory_allocated(device)
-    t0 = time.perf_counter()
-    quick = test_fn(state, 24998)  # returns host floats: synchronised
-    test_s = time.perf_counter() - t0
-    test_peak = torch.cuda.max_memory_allocated(device) - base
-    t0 = time.perf_counter()
-    full = test_fn(state, 24999)
-    eval_s = time.perf_counter() - t0
+    dropout_mask.launches = philox_uniform.launches = 0
+    scores = {}
+    for precision in ("bfloat16", "float32"):
+        with precision_policy(precision):
+            scores[precision] = _score(test_fn, state, device)
     # the dev cost's spread over its draws (fake noise and labels, dropout,
-    # GP alphas, dequantisation): test_fn draws from seed 1 only
+    # GP alphas, dequantisation), in bf16: test_fn draws from seed 1 only
     n_dev = cfg.BATCH_SIZE * 10
     dev_x, dev_y = (torch.from_numpy(a[:n_dev]).to(device) for a in flagship.data["test"])
     spread = [float(flagship.trainer.dev_cost(state, dev_x, dev_y, Randomness(seed, device)))
               for seed in DEV_COST_SEEDS]
-    launches = dropout_mask.launches
-    expected = 6 * (2 + len(DEV_COST_SEEDS))
+    launches = dropout_mask.launches, philox_uniform.launches
+    n_dev_costs = 2 * len(scores) + len(DEV_COST_SEEDS)
+    expected = (6 * n_dev_costs, n_dev_costs) if device.type == "cuda" else (0, 0)
     if launches != expected:
-        raise AssertionError(f"dropout_mask launched {launches} times in the dev costs, expected {expected}")
+        raise AssertionError(f"dropout_mask, philox_uniform launched {launches} times in the dev costs, "
+                             f"expected {expected}")
     grid = decode_png(Path(out_dir) / "samples_24999.png")
     if grid.shape != (320, 320, 3):
         raise AssertionError(f"samples_24999.png is {grid.shape}")
-    for k, v in JAX_LOGGED.items():
-        print(f"jax_checkpoint {k}: port {full[k]:.5f}, JAX run logged {v}")
-    print(f"jax_checkpoint dev_cost over seeds {list(DEV_COST_SEEDS)}: "
+    for precision, score in scores.items():
+        full = score["eval"]
+        for k, v in JAX_LOGGED.items():
+            print(f"jax_checkpoint {precision} {k}: port {full[k]:.5f}, JAX run logged {v}")
+        print(f"jax_checkpoint {precision} inception_50k_std: port {full['inception_50k_std']:.5f}; "
+              f"test_fn without IS {score['test_s']:.3f} s, with IS over {cfg.inception_samples} and FID "
+              f"{score['eval_s']:.3f} s; peak device memory of test_fn without IS above the state "
+              f"{score['test_peak_bytes'] / 2**30:.3f} GiB")
+        if not all(math.isfinite(full[k]) for k in JAX_LOGGED):
+            raise AssertionError(f"non-finite eval in {precision}: {full}")
+        if abs(full["inception_50k"] - JAX_LOGGED["inception_50k"]) > IS_GATE:
+            raise AssertionError(f"IS {full['inception_50k']} in {precision} is not within {IS_GATE} of "
+                                 f"{JAX_LOGGED['inception_50k']}: layouts or loading are wrong")
+    print(f"jax_checkpoint dev_cost (bf16) over seeds {list(DEV_COST_SEEDS)}: "
           f"{' '.join(f'{v:.5f}' for v in spread)} (mean {np.mean(spread):.5f}, "
           f"min {min(spread):.5f}, max {max(spread):.5f})")
-    print(f"jax_checkpoint inception_50k_std: port {full['inception_50k_std']:.5f}; "
-          f"test_fn without IS {test_s:.3f} s, with IS over {cfg.inception_samples} and FID {eval_s:.3f} s; "
-          f"peak device memory of test_fn without IS above the state {test_peak / 2**30:.3f} GiB")
-    if not all(math.isfinite(full[k]) for k in JAX_LOGGED):
-        raise AssertionError(f"non-finite eval: {full}")
-    if abs(full["inception_50k"] - JAX_LOGGED["inception_50k"]) > IS_GATE:
-        raise AssertionError(f"IS {full['inception_50k']} is not within {IS_GATE} of "
-                             f"{JAX_LOGGED['inception_50k']}: layouts or loading are wrong")
 
-    prefix = str(Path(out_dir) / "generated")
-    samples = generate.main(cfg=generate.Config(ckpt=str(ckpt), n=100, out_prefix=prefix), device=device)
-    if samples.shape != (100, 3072) or not np.isfinite(samples).all() or np.abs(samples).max() > 1:
-        raise AssertionError("generate: samples are not finite [100, 3072] values in [-1, 1]")
-    if decode_png(prefix + ".png").shape != (320, 320, 3):
-        raise AssertionError("generate: the grid does not decode to 320x320 RGB")
-    serve = generate.main(cfg=generate.Config(ckpt=str(ckpt), batch=1024, serve_iters=20), device=device)
-    if dropout_mask.launches != launches:
-        raise AssertionError("generate launched the dropout kernel; G has no dropout")
-    return dict(launches=launches, eval=full, quick=quick, test_s=test_s, eval_s=eval_s,
-                test_peak_bytes=test_peak, serve=serve, dev_cost_spread=spread)
+    serve = {}
+    for bf16 in (False, True):
+        prefix = str(Path(out_dir) / f"generated_{'bf16' if bf16 else 'fp32'}")
+        samples = generate.main(cfg=generate.Config(ckpt=str(ckpt), n=100, out_prefix=prefix, bf16=bf16),
+                                device=device)
+        if samples.shape != (100, 3072) or not np.isfinite(samples).all() or np.abs(samples).max() > 1:
+            raise AssertionError(f"generate (bf16 {bf16}): samples are not finite [100, 3072] values in [-1, 1]")
+        if decode_png(prefix + ".png").shape != (320, 320, 3):
+            raise AssertionError("generate: the grid does not decode to 320x320 RGB")
+        serve["bf16" if bf16 else "fp32"] = generate.main(
+            cfg=generate.Config(ckpt=str(ckpt), batch=1024, serve_iters=20, bf16=bf16), device=device)
+    if (dropout_mask.launches, philox_uniform.launches) != launches:
+        raise AssertionError("generate launched a kernel; G has no dropout and no dequantisation")
+    return dict(launches=launches[0], uniform_launches=launches[1], scores=scores, serve=serve,
+                dev_cost_spread=spread)
+
+
+def _train_line(name: str, out: dict) -> str:
+    return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations 1-3, {out['seconds']:.2f} s for main "
+            f"(scorer fit {out['scorer_fit_s']} s), peak {out['peak_bytes'] / 2**30:.3f} GiB, "
+            f"launches {out['launches']} + {out['uniform_launches']}, evals {json.dumps(out['evals'])}, "
+            f"last {json.dumps(out['last'])}")
 
 
 def main() -> int:
@@ -516,38 +849,51 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = _phase("device", phase_device)
     _phase("build", phase_build)
-    kernel = _phase("kernel", phase_kernel, device)
+    kernels = _phase("kernel", phase_kernel, device)
+    draws = _phase("draws", phase_draws, device)
     _phase("cuda_vs_cpu", phase_cuda_vs_cpu, device)
+    _phase("cuda_vs_cpu_bf16", phase_cuda_vs_cpu, device, precision="bfloat16")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg = app.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, INCEPTION_FREQUENCY=10,
-                         inception_samples=5000, out_dir=out_dir)
+                         inception_samples=5000, out_dir=f"{out_dir}/bf16")
         print(f"train: cut for time: ITERS {TRAIN_ITERS} (of 100000), inception_samples 5000 "
-              f"(of 50000); scorer fitted for 3 epochs on the card")
+              f"(of 50000); scorer fitted for 3 epochs on the card; BF16 {cfg.BF16} (the default)")
         train = _phase("train", phase_train, device, cfg)
         resume = _phase("train_resume", phase_resume, device, cfg)
-    resume_diff = _phase("resume_equal", phase_resume_equal, device)
+        fp32_cfg = dataclasses.replace(cfg, BF16=False, out_dir=f"{out_dir}/fp32")
+        train_fp32 = _phase("train_fp32", phase_train, device, fp32_cfg)
+        norm_cfg = app.Config(ITERS=4, save_every=2, sample_every=2, INCEPTION_FREQUENCY=0,
+                              NORMALIZATION_D=True, out_dir=f"{out_dir}/norm_d")
+        norm_d = _phase("train_norm_d", phase_train, device, norm_cfg)
+    resume_diff = {p: _phase(f"resume_equal_{p}", phase_resume_equal, device, precision=p)
+                   for p in ("float32", "bfloat16")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_jax_") as out_dir:
         jax_ckpt = _phase("jax_checkpoint", phase_jax_checkpoint, device, out_dir)
-    launches = train["launches"] + resume["launches"] + jax_ckpt["launches"]
+    runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
+            "jax_checkpoint": jax_ckpt}
+    launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
+                "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
     print(f"train: {json.dumps(dataclasses.asdict(cfg) | {'out_dir': '<tmp>'})}")
-    print(f"train: {train['s_per_iter']:.5f} s/iter over iterations 1-3, "
-          f"{train['seconds']:.2f} s for main (setup, scorer fit, {TRAIN_ITERS} iterations, "
-          f"2 test_fn, 2 checkpoints; scorer fit {train['scorer_fit_s']} s), "
-          f"peak {train['peak_bytes'] / 2**30:.3f} GiB, "
-          f"launches {train['launches']}, evals {json.dumps(train['evals'])}, "
-          f"last {json.dumps(train['last'])}")
-    print(f"train_resume: {resume['line']}; {resume['seconds']:.2f} s, launches {resume['launches']}")
-    print(f"resume_equal: max param diff {resume_diff:.3g}")
+    print(_train_line("train (bf16)", train))
+    print(_train_line("train_fp32", train_fp32))
+    print(_train_line("train_norm_d (bf16)", norm_d))
+    print(f"train_resume: {resume['line']}; {resume['seconds']:.2f} s, "
+          f"launches {resume['launches']} + {resume['uniform_launches']}")
+    print(f"resume_equal: max param diff {json.dumps(resume_diff)}")
+    print(f"draws: {json.dumps(draws)}")
     print(f"serve: {json.dumps(jax_ckpt['serve'])}")
-    print(f"launches on the main path: train {train['launches']} + resume {resume['launches']} "
-          f"+ jax_checkpoint {jax_ckpt['launches']} = {launches}")
+    for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
+        print(f"{name} launches on the main path: "
+              + " + ".join(f"{k} {r[key]}" for k, r in runs.items()) + f" = {launches[name]}")
+        if not launches[name]:
+            raise AssertionError(f"{name} was not launched on the main path")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(f"card: {smi}")
-    print(json.dumps({"kernels": [{
-        "name": "dropout_mask", "route": "cuda", "source": "ctgan_tpu_torch/csrc/dropout_mask.cu",
-        "replaces": "ctgan_tpu/kernels/dropout.py:35", "launches": launches,
-        **kernel, "bound_by": "bytes",
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": k["name"], "route": k["route"], "source": k["source"], "replaces": k["replaces"],
+         "launches": launches[k["name"]], **{f: k[f] for f in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -17,11 +17,14 @@ from ..utils.images import save_images
 
 __all__ = ["parse_config", "setup_out_dir", "save_sample_grid", "pick_scorer", "find_inception_file"]
 
-# where the JAX package looks for the Inception-2015 frozen graph
-# (ctgan_tpu/eval/inception2015.py:34-52)
+# where the JAX package looks for the Inception-2015 frozen graph, in its
+# order (ctgan_tpu/eval/inception2015.py:34-39); the last two are relative
+# to the working directory
 _INCEPTION_LOCATIONS = (
     "/tmp/imagenet/classify_image_graph_def.pb",
     "/tmp/imagenet/inception-2015-12-05.tgz",
+    "weights/classify_image_graph_def.pb",
+    "weights/inception-2015-12-05.tgz",
 )
 
 
@@ -50,7 +53,7 @@ def save_sample_grid(samples_flat, shape_chw, path, value_range=(-1.0, 1.0)) -> 
     """Flat C-major samples (array or tensor) -> a PNG grid, rescaled from
     ``value_range`` to [0, 1]."""
     if hasattr(samples_flat, "detach"):
-        samples_flat = samples_flat.detach().cpu().numpy()
+        samples_flat = samples_flat.detach().float().cpu().numpy()
     lo, hi = value_range
     x = (np.asarray(samples_flat, dtype="float32") - lo) / (hi - lo)
     c, h, w = shape_chw
@@ -62,7 +65,8 @@ def save_sample_grid(samples_flat, shape_chw, path, value_range=(-1.0, 1.0)) -> 
 
 def find_inception_file() -> str | None:
     """The Inception-2015 weight file that the JAX package would use:
-    ``$CTGAN_INCEPTION_PB`` or the reference's cache location."""
+    ``$CTGAN_INCEPTION_PB``, else the first of its four default locations
+    that exists."""
     cands = [os.environ.get("CTGAN_INCEPTION_PB"), *_INCEPTION_LOCATIONS]
     return next((c for c in cands if c and os.path.exists(c)), None)
 

@@ -4,10 +4,24 @@
     python -m ctgan_tpu_torch.apps.ct_gan_cifar_resnet --ITERS 15 --out_dir runs/x
 
 The flags are the fields of :class:`Config`, under the JAX app's names and
-defaults, with these differences.  Runs are fp32: ``BF16`` defaults to off
-and raises if set (the bf16 policy is a later slice).  ``CUDA_DROPOUT``
-takes the place of ``PALLAS_DROPOUT`` and, like it, is on by default.
-``REMAT``, ``OPT_STATE_DTYPE`` and ``MODEL_AXIS`` are not ported.
+defaults, with these differences.  ``CUDA_DROPOUT`` takes the place of
+``PALLAS_DROPOUT`` and, like it, is on by default.  ``REMAT``,
+``OPT_STATE_DTYPE`` and ``MODEL_AXIS`` are not ported.
+
+Precision.  ``BF16`` is on by default, as in the JAX app, and like the JAX
+app (``ctgan_tpu/apps/ct_gan_cifar_resnet.py:87-91``) it sets the bf16
+policy (``core.precision``) process-wide when the run is on the card:
+conv and matmul operands in bf16, bf16 activations, fp32 norm statistics
+and loss reductions, fp32 parameters, Adam moments and schedule.  On the
+CPU, ``BF16`` runs fp32, exactly as the JAX app does off the accelerator.
+``--BF16 0`` runs fp32 on the card too: PyTorch's default there, cuDNN
+computing fp32 convolutions in TF32 and matrix products in full fp32.
+Each ``main`` sets the process-wide policy from its own config.
+
+``NORMALIZATION_D`` adds layer norms to D, label-blind under ACGAN
+(``models.resnet_cifar``).  A conditional model with neither ACGAN nor
+``NORMALIZATION_D`` prints the reference's warning that it may be
+effectively unconditional.
 
 The run is the JAX app's workflow through ``train.loop.train_loop``:
 metrics printed on the first 5 iterations and every 100th (means since the
@@ -36,7 +50,7 @@ import numpy as np
 import torch
 
 from ..bridge import from_jax_params, state_from_jax, state_to_jax
-from ..core import Randomness, format_param_table, split_params
+from ..core import Randomness, default_policy, format_param_table, split_params
 from ..data import DeviceSampler, load_arrays
 from ..models import resnet_cifar
 from ..train import AcganConfig, AcganState, AcganTrainer, LoopConfig, train_loop
@@ -71,7 +85,7 @@ class Config:
     ACGAN_SCALE_G: float = 0.1
     n_examples: int = 50000
     DATA_DIR: str = ""
-    BF16: bool = False
+    BF16: bool = True
     CUDA_DROPOUT: bool = True
     CLEAN_PASS: bool = True
     FUSE_CT_PASSES: bool = True
@@ -98,10 +112,14 @@ class Flagship(NamedTuple):
 
 def setup(cfg: Config, device) -> Flagship:
     """Fresh trainer and state, the data, the device-resident sampler and
-    the base randomness of a run of ``cfg`` on ``device``."""
-    if cfg.BF16:
-        raise NotImplementedError("BF16: the bf16 policy is not ported yet; runs are fp32")
+    the base randomness of a run of ``cfg`` on ``device``.  Sets the
+    process-wide precision policy: bf16 where ``cfg.BF16`` and the device is
+    CUDA, else fp32."""
     device = torch.device(device)
+    default_policy(enable_bf16=cfg.BF16 and device.type == "cuda")
+    if cfg.CONDITIONAL and not cfg.ACGAN and not cfg.NORMALIZATION_D:
+        print("WARNING! Conditional model without normalization in D might be "
+              "effectively unconditional!")
     mcfg = resnet_cifar.ResnetCifarConfig(
         dim_g=cfg.DIM_G, dim_d=cfg.DIM_D, conditional=cfg.CONDITIONAL, acgan=cfg.ACGAN,
         normalization_g=cfg.NORMALIZATION_G, normalization_d=cfg.NORMALIZATION_D,

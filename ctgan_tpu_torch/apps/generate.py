@@ -6,7 +6,10 @@ cifar_resnet``.
     python -m ctgan_tpu_torch.apps.generate --batch 1024 --serve_iters 50
 
 ``--ckpt`` takes a checkpoint of either package's train loop (or a
-``params_latest.npz``, or a plain param dict).  Samples are made in batches
+``params_latest.npz``, or a plain param dict).  ``--bf16`` runs G under the
+bf16 precision policy, else under fp32, as the JAX app's ``_apply_call``
+does (``ctgan_tpu/apps/generate.py:109-117``); samples leave the device as
+fp32 either way.  Samples are made in batches
 of ``--batch`` with random labels; G's batch norm uses each batch's
 statistics, so the batch size is part of the result.  The first 100 go to
 ``<out_prefix>.png``; ``--save_npz`` also writes them all to
@@ -15,8 +18,8 @@ statistics, so the batch size is part of the result.  The first 100 go to
 one JSON line with the JAX app's keys.
 
 Not ported yet, and refused: the models ``mnist``, ``cifar``, ``good64``
-and ``lsun128`` (ROADMAP Queue 1 items 12b, 13 and 14), ``--aot``/``--aot_save``
-(item 12b) and ``--bf16`` (item 8).
+and ``lsun128`` (ROADMAP Queue 1 items 12b, 13 and 14) and
+``--aot``/``--aot_save`` (item 12b).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from ..bridge import from_jax_params
-from ..core import Randomness, split_params
+from ..core import Randomness, precision_policy, split_params
 from ..models import resnet_cifar
 from ..utils.checkpoint import load_checkpoint
 from .common import parse_config, save_sample_grid
@@ -69,8 +72,6 @@ def _check_supported(cfg: Config) -> None:
     if cfg.aot or cfg.aot_save:
         raise NotImplementedError("--aot/--aot_save are not ported yet: ROADMAP Queue 1 item 12b "
                                   "(serving ahead-of-time, CUDA graphs or torch.export)")
-    if cfg.bf16:
-        raise NotImplementedError("--bf16 is not ported yet: ROADMAP Queue 1 item 8 (bf16)")
 
 
 def load_gen_params(ckpt_path: str) -> dict[str, np.ndarray]:
@@ -96,15 +97,16 @@ def _gen_params(cfg: Config, device) -> dict[str, torch.Tensor]:
 
 
 def _sampler(cfg: Config, params: dict, device):
-    """``call(n, seed) -> [n, 3072]`` images in [-1, 1], labels drawn from
-    ``seed``."""
+    """``call(n, seed) -> [n, 3072]`` images in [-1, 1] (bf16 under
+    ``--bf16``), labels drawn from ``seed``."""
     mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
 
     @torch.no_grad()
     def call(n: int, seed: int) -> torch.Tensor:
         rand = Randomness(seed, device)
         labels = rand.labels(n, mcfg.n_labels)
-        return resnet_cifar.generator(params, n, labels, mcfg, rand)
+        with precision_policy("bfloat16" if cfg.bf16 else "float32"):
+            return resnet_cifar.generator(params, n, labels, mcfg, rand)
 
     return call
 
@@ -165,7 +167,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     if not cfg.ckpt:
         raise SystemExit("--ckpt required")
     call = _sampler(cfg, _gen_params(cfg, device), device)
-    outs = [call(min(cfg.batch, cfg.n - i), cfg.seed * 1_000_003 + i).cpu()
+    outs = [call(min(cfg.batch, cfg.n - i), cfg.seed * 1_000_003 + i).float().cpu()
             for i in range(0, cfg.n, cfg.batch)]
     samples = torch.cat(outs)[: cfg.n].numpy()
     grid_path = f"{cfg.out_prefix}.png"

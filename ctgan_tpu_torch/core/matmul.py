@@ -1,0 +1,50 @@
+"""Matrix product and convolution under the precision policy (counterpart
+of ``matmul`` and ``conv`` in ``ctgan_tpu/core/matmul.py``).
+
+Under fp32 both operands are promoted to their common type, at least fp32
+(an activation that is bf16 is promoted, as ``jnp.dot`` promotes it; a
+float64 run stays float64), and so is the result.  Under bf16 both
+operands are cast to bf16; the card accumulates in fp32 and rounds the
+result to bf16 once, and the result stays bf16 (the JAX package's
+default ``keep_bf16_activations(True)``; nothing in the port casts it back).
+Biases are added by the callers, in the result's dtype.
+
+fp32 here means what PyTorch runs by default on the card: cuDNN computes
+fp32 convolutions in TF32, and matrix products stay in full fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .precision import compute_dtype
+
+__all__ = ["conv", "matmul"]
+
+
+def _fp32_operands(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+
+
+def _apply(op, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    dt = compute_dtype()
+    if dt == torch.float32:
+        dt = _fp32_operands(x, w)
+        return op(x.to(dt), w.to(dt))
+    if x.device.type == "cpu":
+        # bf16 operands, fp32 accumulation, one rounding of the result: what
+        # the card does.  PyTorch's CPU bf16 convolution accumulates its
+        # double backward in bf16 and loses it (tests/test_torch_bf16.py).
+        return op(x.to(dt).float(), w.to(dt).float()).to(dt)
+    return op(x.to(dt), w.to(dt))
+
+
+def matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weight.T`` over the last axis; ``weight`` is ``[out, in]``."""
+    return _apply(F.linear, x, weight)
+
+
+def conv(x: torch.Tensor, filters: torch.Tensor, *, stride: int = 1, padding=0) -> torch.Tensor:
+    """2-D convolution of NCHW ``x`` with OIHW ``filters``, no bias."""
+    return _apply(lambda a, b: F.conv2d(a, b, stride=stride, padding=padding), x, filters)

@@ -10,7 +10,10 @@ same methods that hands out the JAX package's own draws.
 A training run asks :meth:`Randomness.for_step` for each iteration's draws:
 they are a function of ``(seed, step)`` alone, as the JAX package folds the
 step into its base key, so a run resumed from a checkpoint draws what an
-uninterrupted run draws, with no generator state in the file.
+uninterrupted run draws, with no generator state in the file.  They do not
+depend on the device either, as the JAX package's draws do not depend on the
+platform: a checkpoint written on the card and resumed on the CPU goes on
+with the same data and noise.
 """
 
 from __future__ import annotations
@@ -18,29 +21,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.dropout import dropout_mask_reference, philox_uniform
 from ..ops.dropout import make_mask
-from ..kernels.dropout import dropout_mask_reference
 
 __all__ = ["Randomness"]
 
 
 class Randomness:
-    """Seeded draws for a run on ``device``.
+    """Seeded draws for a run on ``device``, the same on every device.
 
-    Dense draws come from a ``torch.Generator`` on ``generator_device``
-    (default: ``device``) and are moved to ``device``; drawing on the CPU
-    for two devices gives both the same numbers.  Each dropout mask gets a
-    fresh 32-bit seed from a host NumPy generator, so no draw waits on the
-    device.  ``cuda_dropout=False`` makes masks with the kernel's plain
-    version (the same bits, without the kernel).
+    * Latent noise, labels and GP alphas (small) come from a CPU
+      ``torch.Generator`` and go to ``device`` in one pinned, non-blocking
+      copy each.
+    * Dequantisation noise (a uniform per pixel, the large draw) and dropout
+      masks come from Philox keyed on a fresh 32-bit seed of a host NumPy
+      generator: the CUDA kernels on the card, their plain versions on the
+      CPU, bit for bit the same.  ``cuda_dropout=False`` makes masks with
+      the plain version on any device.
     """
 
-    def __init__(self, seed: int, device, *, generator_device=None, cuda_dropout: bool = True):
+    def __init__(self, seed: int, device, *, cuda_dropout: bool = True):
         self.seed = seed
         self.device = torch.device(device)
-        gen_device = torch.device(generator_device) if generator_device is not None else self.device
-        self._gen_device = gen_device
-        self._gen = torch.Generator(device=gen_device)
+        self._gen = torch.Generator()
         self._gen.manual_seed(seed)
         self._seeds = np.random.default_rng(seed)
         self._cuda_dropout = cuda_dropout
@@ -49,29 +52,34 @@ class Randomness:
         """A fresh provider for training step ``step``, seeded from
         ``(seed, step)``."""
         derived = int(np.random.SeedSequence([self.seed, step]).generate_state(1, np.uint64)[0] >> 1)
-        return Randomness(derived, self.device, generator_device=self._gen_device,
-                          cuda_dropout=self._cuda_dropout)
+        return Randomness(derived, self.device, cuda_dropout=self._cuda_dropout)
 
     def _to(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device)
+        """A host draw on the device: on the card one copy from pinned
+        memory that does not block the host."""
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _seed(self) -> int:
+        return int(self._seeds.integers(0, 1 << 32))
 
     def noise(self, n: int, dim: int) -> torch.Tensor:
-        return self._to(torch.randn(n, dim, generator=self._gen, device=self._gen_device))
+        return self._to(torch.randn(n, dim, generator=self._gen))
 
     def labels(self, n: int, n_labels: int) -> torch.Tensor:
-        return self._to(torch.randint(0, n_labels, (n,), generator=self._gen, device=self._gen_device))
+        return self._to(torch.randint(0, n_labels, (n,), generator=self._gen))
 
     def dequant(self, shape) -> torch.Tensor:
         """U[0, 1/128) added to the rescaled uint8 reals."""
-        u = torch.rand(shape, generator=self._gen, device=self._gen_device)
-        return self._to(u * (1.0 / 128))
+        return philox_uniform(self._seed(), tuple(shape), 1.0 / 128, self.device)
 
     def gp_alpha(self, n: int) -> torch.Tensor:
         """One interpolation weight per example, ``[n, 1]``."""
-        return self._to(torch.rand(n, 1, generator=self._gen, device=self._gen_device))
+        return self._to(torch.rand(n, 1, generator=self._gen))
 
     def dropout_mask(self, shape, keep_prob, dtype: torch.dtype, device) -> torch.Tensor:
-        seed = int(self._seeds.integers(0, 1 << 32))
+        seed = self._seed()
         if self._cuda_dropout:
             return make_mask(seed, shape, keep_prob, dtype, device)
         return dropout_mask_reference(seed, shape, keep_prob, dtype, device)

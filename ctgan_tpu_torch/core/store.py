@@ -46,8 +46,8 @@ class ParamInit:
         self.add(name + ".b", lambda: np.zeros(output_dim, "float32"))
 
     def norm(self, name: str, channels: int, n_labels: int | None = None) -> None:
-        """Offset and scale of a batch norm; per-label tables when
-        ``n_labels`` is given (conditional batch norm)."""
+        """Offset and scale of a batch or layer norm; per-label tables when
+        ``n_labels`` is given (the conditional norms)."""
         shape = (channels,) if n_labels is None else (n_labels, channels)
         self.add(name + ".offset", lambda: np.zeros(shape, "float32"))
         self.add(name + ".scale", lambda: np.ones(shape, "float32"))

@@ -1,4 +1,5 @@
-// Scaled dropout keep-mask for Hopper (sm_90a), with a plain C interface.
+// Scaled dropout keep-mask for Hopper (sm_90a), and uniform floats from the
+// same random bits, with a plain C interface.
 //
 // Replaces the Pallas TPU kernel ctgan_tpu/kernels/dropout.py::_mask_kernel
 // (launched by _mask_padded).  Same contract: mask[i] = scale where the
@@ -20,6 +21,17 @@
 // (4 words) per step of a grid-stride loop and writes its 4 elements with
 // one vector store (16 bytes in fp32, 8 in bf16); the ragged tail is written
 // element by element.
+//
+// Second entry, ctgan_philox_uniform: out[i] = (bits_i >> 8) * 2^-24 * scale
+// in fp32, with bits_i the same Philox word as above.  The top 24 bits as a
+// fraction are exact in fp32 and lie in [0, 1); one rounded multiply by
+// scale follows.  The trainer draws its dequantisation noise this way
+// (U[0, 1/128) over 5 x 64 x 3072 pixels an iteration), so the noise is the
+// same on the card and on the CPU, where
+// ctgan_tpu_torch/kernels/dropout.py::philox_uniform_reference computes it.
+// It replaces no TPU kernel: the JAX package draws that noise with
+// jax.random.uniform.  Bound: a write of 4 * n bytes; one float4 store per
+// Philox block.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libdropout_mask.so dropout_mask.cu
@@ -91,6 +103,38 @@ __global__ void dropout_mask_kernel(void* __restrict__ out, int64_t n, uint32_t 
   }
 }
 
+__global__ void philox_uniform_kernel(float* __restrict__ out, int64_t n, uint32_t seed,
+                                      float scale) {
+  const int64_t groups = (n + 3) / 4;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups;
+       g += stride) {
+    const uint4 r = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32), 0u, 0u), seed, 0u);
+    const float v[4] = {
+        __fmul_rn(__fmul_rn(__uint2float_rn(r.x >> 8), 0x1p-24f), scale),
+        __fmul_rn(__fmul_rn(__uint2float_rn(r.y >> 8), 0x1p-24f), scale),
+        __fmul_rn(__fmul_rn(__uint2float_rn(r.z >> 8), 0x1p-24f), scale),
+        __fmul_rn(__fmul_rn(__uint2float_rn(r.w >> 8), 0x1p-24f), scale),
+    };
+    const int64_t i = 4 * g;
+    if (i + 3 < n) {
+      *reinterpret_cast<float4*>(out + i) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      for (int j = 0; i + j < n; ++j) out[i + j] = v[j];
+    }
+  }
+}
+
+int64_t grid_blocks(int64_t n, int threads) {
+  constexpr int64_t kMaxBlocks = 8192;
+  const int64_t groups = (n + 3) / 4;
+  const int64_t blocks = (groups + threads - 1) / threads;
+  return blocks > kMaxBlocks ? kMaxBlocks : blocks;
+}
+
+constexpr int kThreads = 256;
+
 }  // namespace
 
 // out: device buffer of n elements, 16-byte aligned; dtype 0 = fp32, 1 = bf16.
@@ -98,11 +142,7 @@ __global__ void dropout_mask_kernel(void* __restrict__ out, int64_t n, uint32_t 
 extern "C" int ctgan_dropout_mask(void* out, int64_t n, uint32_t seed, uint32_t thresh,
                                   float scale, int dtype, void* stream) {
   if (n <= 0) return 0;
-  constexpr int kThreads = 256;
-  constexpr int64_t kMaxBlocks = 8192;
-  const int64_t groups = (n + 3) / 4;
-  int64_t blocks = (groups + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const int64_t blocks = grid_blocks(n, kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     dropout_mask_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(out, n, seed, thresh,
@@ -113,5 +153,16 @@ extern "C" int ctgan_dropout_mask(void* out, int64_t n, uint32_t seed, uint32_t 
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: device buffer of n fp32 values, 16-byte aligned.  Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
+extern "C" int ctgan_philox_uniform(float* out, int64_t n, uint32_t seed, float scale,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  const int64_t blocks = grid_blocks(n, kThreads);
+  philox_uniform_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(out, n, seed, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,15 +25,21 @@ class DeviceSampler:
         self.iters_per_epoch = max(1, self.n // self.per_iter)
         self._perm_cache: tuple[int, torch.Tensor] | None = None
 
+    def host_perm(self, epoch: int) -> torch.Tensor:
+        """The port's own (seed, epoch)-deterministic shuffle, drawn on the
+        host as the JAX package draws its permutation
+        (``ctgan_tpu/data/iterator.py:29-47``): the same on every device.
+        (The JAX package draws it with ``jax.random``; parity tests pass
+        that one to :meth:`sample`.)"""
+        gen = torch.Generator()
+        gen.manual_seed(self.seed * 1_000_003 + epoch)
+        return torch.randperm(self.n, generator=gen)
+
     def epoch_perm(self, epoch: int) -> torch.Tensor:
-        """The port's own (seed, epoch)-deterministic shuffle, made on the
-        device and cached for the epoch.  (The JAX package draws it with
-        ``jax.random``; parity tests pass that one to :meth:`sample`.)"""
+        """:meth:`host_perm` on the device, copied once and cached for the
+        epoch."""
         if self._perm_cache is None or self._perm_cache[0] != epoch:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.seed * 1_000_003 + epoch)
-            perm = torch.randperm(self.n, generator=gen, device=self.device)
-            self._perm_cache = (epoch, perm)
+            self._perm_cache = (epoch, self.host_perm(epoch).to(self.device))
         return self._perm_cache[1]
 
     def sample(self, step: int, perm: torch.Tensor | None = None):

@@ -13,6 +13,11 @@ the JAX package wrote and the other way round.  In memory they are
 port-layout tensors on the scorer's device.  :meth:`TrainedScorer.fit`
 trains as the JAX one does: TF-Adam at lr 1e-3, betas 0.9 and 0.999, and
 batches in the order of ``np.random.default_rng(seed)``'s permutations.
+
+Its convs and its linear layer run under the precision policy, so under the
+flagship app's bf16 default on the card the scorer fits and scores in bf16,
+as the JAX package's global policy makes it on the TPU; probabilities and
+features leave the device as fp32.
 """
 
 from __future__ import annotations
@@ -141,7 +146,7 @@ class TrainedScorer:
                                    self.channels, self.size)
             probs.append(torch.softmax(logits, dim=1))
             feats.append(f)
-        return torch.cat(probs).cpu().numpy(), torch.cat(feats).cpu().numpy()
+        return torch.cat(probs).float().cpu().numpy(), torch.cat(feats).float().cpu().numpy()
 
     def probs(self, images) -> np.ndarray:
         return self._apply(images)[0]

@@ -3,8 +3,11 @@
 ``SOURCES`` names every kernel source under ``csrc/`` (built by
 :func:`build.build_libraries`)."""
 
-from .dropout import dropout_mask, dropout_mask_reference
+from .dropout import dropout_mask, dropout_mask_reference, philox_uniform, philox_uniform_reference
 
 SOURCES = ["dropout_mask"]
 
-__all__ = ["SOURCES", "dropout_mask", "dropout_mask_reference"]
+__all__ = [
+    "SOURCES", "dropout_mask", "dropout_mask_reference", "philox_uniform",
+    "philox_uniform_reference",
+]

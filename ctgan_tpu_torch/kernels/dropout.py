@@ -1,5 +1,5 @@
-"""Dropout keep-mask: the CUDA kernel ``csrc/dropout_mask.cu`` and its plain
-PyTorch version.
+"""Dropout keep-mask and Philox uniforms: the CUDA kernels of
+``csrc/dropout_mask.cu`` and their plain PyTorch versions.
 
 Counterpart of ``ctgan_tpu/kernels/dropout.py`` (the Pallas kernel
 ``_mask_kernel``).  Both versions compute, for a 32-bit seed and a static
@@ -13,6 +13,13 @@ counter ``(i // 4, 0, 0)``, word ``i % 4``: the kernel and
 :func:`dropout_mask` is the wrapper the model calls: on a CUDA device it
 launches the kernel (and counts the launch in ``dropout_mask.launches``), on
 the CPU it returns the plain version.
+
+:func:`philox_uniform` turns the same bits into fp32 uniforms in [0,
+``scale``): element ``i`` is ``(bits_i >> 8) * 2**-24 * scale``, exact up to
+the one multiply by ``scale``.  The trainer's dequantisation noise comes from
+it, so a run draws the same noise on the card as on the CPU
+(:func:`philox_uniform_reference`); it counts its launches in
+``philox_uniform.launches``.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ import torch
 
 from .build import load_library
 
-__all__ = ["dropout_mask", "dropout_mask_reference", "philox4x32_10", "keep_threshold"]
+__all__ = [
+    "dropout_mask", "dropout_mask_reference", "keep_threshold", "philox4x32_10", "philox_uniform",
+    "philox_uniform_reference",
+]
 
 _U32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -66,13 +76,23 @@ def keep_threshold(keep_prob: float) -> int:
     return min(int(keep_prob * (1 << 32)), (1 << 32) - 1)
 
 
+def _check_seed(seed: int) -> None:
+    if not 0 <= seed <= _U32:
+        raise ValueError(f"seed must be a uint32, got {seed}")
+
+
 def _check(seed: int, keep_prob, dtype: torch.dtype) -> None:
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"dropout mask dtype must be float32 or bfloat16, not {dtype}")
-    if not 0 <= seed <= _U32:
-        raise ValueError(f"seed must be a uint32, got {seed}")
+    _check_seed(seed)
     if not isinstance(keep_prob, torch.Tensor) and not 0.0 < keep_prob <= 1.0:
         raise ValueError(f"keep_prob must lie in (0, 1], got {keep_prob}")
+
+
+def _bits(seed: int, n: int, device) -> torch.Tensor:
+    """The first ``n`` Philox words of ``seed`` (int64 holding uint32)."""
+    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    return philox4x32_10(groups, seed).reshape(-1)[:n]
 
 
 def dropout_mask_reference(
@@ -82,9 +102,7 @@ def dropout_mask_reference(
     tensor arithmetic.  ``keep_prob`` may also be a 0-d tensor (the plain
     dropout arm for a traced keep probability)."""
     _check(seed, keep_prob, dtype)
-    n = math.prod(shape)
-    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
-    bits = philox4x32_10(groups, seed).reshape(-1)[:n].reshape(shape)
+    bits = _bits(seed, math.prod(shape), device).reshape(shape)
     if isinstance(keep_prob, torch.Tensor):
         kp = keep_prob.to(device=device, dtype=torch.float64)
         thresh = torch.clamp(torch.floor(kp * float(1 << 32)), max=float(_U32)).to(torch.int64)
@@ -95,14 +113,38 @@ def dropout_mask_reference(
     return torch.where(bits < thresh, scale, torch.zeros((), device=device)).to(dtype)
 
 
+def philox_uniform_reference(seed: int, shape, scale: float = 1.0, device="cpu") -> torch.Tensor:
+    """Plain PyTorch version of the uniform kernel: fp32 values in [0,
+    ``scale``) from the same Philox bits."""
+    _check_seed(seed)
+    u = (_bits(seed, math.prod(shape), device) >> 8).to(torch.float32) * 2.0**-24
+    return (u * torch.tensor(np.float32(scale), device=device)).reshape(shape)
+
+
 @functools.cache
-def _launcher():
-    """The kernel's C entry point, built and loaded on first use."""
-    fn = load_library("dropout_mask").ctgan_dropout_mask
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+def _entry(name: str):
+    """A C entry point of the library, built and loaded on first use."""
+    fn = getattr(load_library("dropout_mask"), name)
+    fn.argtypes = {
+        "ctgan_dropout_mask": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
+                               ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "ctgan_philox_uniform": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float,
+                                 ctypes.c_void_p],
+    }[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, out: torch.Tensor, *args) -> None:
+    """Launch ``name`` on ``out``'s device and current stream; raises if
+    the launch fails."""
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise RuntimeError(f"{name} needs a contiguous, 16-byte aligned output")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = _entry(name)(out.data_ptr(), out.numel(), *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
 def dropout_mask(
@@ -125,19 +167,32 @@ def dropout_mask(
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.numel() == 0:
         return out
-    if not out.is_contiguous() or out.data_ptr() % 16:
-        raise RuntimeError("dropout_mask needs a contiguous, 16-byte aligned output")
-    launch = _launcher()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = launch(
-            out.data_ptr(), out.numel(), seed, keep_threshold(keep_prob),
-            float(np.float32(1.0 / keep_prob)), _DTYPE_CODES[dtype], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"dropout_mask kernel launch failed with CUDA error {rc}")
+    _launch("ctgan_dropout_mask", out, seed, keep_threshold(keep_prob),
+            float(np.float32(1.0 / keep_prob)), _DTYPE_CODES[dtype])
     dropout_mask.launches += 1
     return out
 
 
 dropout_mask.launches = 0
+
+
+def philox_uniform(seed: int, shape, scale: float = 1.0, device="cuda") -> torch.Tensor:
+    """fp32 uniforms in [0, ``scale``) of ``shape``, a function of ``seed``.
+
+    On a CUDA device this launches the kernel on the current stream; on the
+    CPU it returns :func:`philox_uniform_reference`."""
+    device = torch.device(device)
+    _check_seed(seed)
+    if device.type == "cpu":
+        return philox_uniform_reference(seed, shape, scale, device)
+    if device.type != "cuda":
+        raise ValueError(f"philox_uniform runs on cuda or cpu, not {device}")
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    _launch("ctgan_philox_uniform", out, seed, float(np.float32(scale)))
+    philox_uniform.launches += 1
+    return out
+
+
+philox_uniform.launches = 0

@@ -5,7 +5,13 @@ A generator of three up-sampling residual blocks with (conditional) batch
 norm, and a discriminator of four blocks with dropout after blocks 2-4,
 global mean-pool features, a WGAN head and an ACGAN head.  With
 ``conditional`` and ``acgan`` the generator's norms are conditioned on the
-labels and the discriminator's trunk is label-blind.
+labels and the discriminator's trunk is label-blind.  ``normalization_d``
+adds a layer norm to D's residual blocks: conditional on the labels when
+the model is conditional without ACGAN, plain otherwise.
+
+Under the bf16 policy the dtypes flow as in the JAX model: G's convs,
+norms and ``tanh`` return bf16, so fakes enter D as bf16; D's outputs are
+bf16.
 """
 
 from __future__ import annotations
@@ -17,7 +23,16 @@ import numpy as np
 import torch
 
 from ..core.store import ParamInit
-from ..ops import batchnorm, cond_batchnorm, conv2d, dropout, global_mean_pool, linear
+from ..ops import (
+    batchnorm,
+    cond_batchnorm,
+    cond_layernorm,
+    conv2d,
+    dropout,
+    global_mean_pool,
+    layernorm,
+    linear,
+)
 from .blocks import (
     optimized_res_block_disc1,
     optimized_res_block_disc1_params,
@@ -45,11 +60,12 @@ class ResnetCifarConfig:
     normalization_d: bool = False
     fuse_meanpool: bool = True
 
-    def __post_init__(self):
-        if self.normalization_d:
-            # the JAX model's D norm is a (conditional) layer norm, which is
-            # not part of the port yet
-            raise NotImplementedError("normalization_d (layer norm in D) is not ported yet")
+    @property
+    def d_norm_conditional(self) -> bool:
+        """D's layer norms read the labels only when the model is
+        conditional without ACGAN: an ACGAN D's trunk is label-blind
+        (ctgan_tpu/models/resnet_cifar.py:71-83)."""
+        return self.conditional and not self.acgan
 
 
 class DiscOut(NamedTuple):
@@ -69,8 +85,15 @@ def _g_normalize(p, cfg: ResnetCifarConfig):
     return norm
 
 
-def _identity_norm(name, x, labels):
-    return x
+def _d_normalize(p, cfg: ResnetCifarConfig):
+    def norm(name, x, labels):
+        if not cfg.normalization_d:
+            return x
+        if cfg.d_norm_conditional and labels is not None:
+            return cond_layernorm(x, labels, p[name + ".scale"], p[name + ".offset"])
+        return layernorm(x, p[name + ".scale"], p[name + ".offset"])
+
+    return norm
 
 
 def generator(
@@ -103,10 +126,12 @@ def discriminator(
     0.5 in training, 1s for the clean pass); masks come from
     ``rand.dropout_mask`` (ctgan_tpu/models/resnet_cifar.py:111-149)."""
     kp1, kp2, kp3 = kps
+    if not cfg.conditional:
+        labels = None
     out = flat_to_nchw(inputs, 3, 32, 32)
     out = optimized_res_block_disc1(p, out, cfg.fuse_meanpool)
     block = dict(input_dim=cfg.dim_d, output_dim=cfg.dim_d, labels=labels,
-                 normalize=_identity_norm, fuse_meanpool=cfg.fuse_meanpool)
+                 normalize=_d_normalize(p, cfg), fuse_meanpool=cfg.fuse_meanpool)
     out = residual_block(p, "Discriminator.2", out, resample="down", **block)
     out = dropout(out, kp1, rand)
     out = residual_block(p, "Discriminator.3", out, resample=None, **block)
@@ -142,12 +167,15 @@ def init_params(cfg: ResnetCifarConfig, seed: int = 0) -> dict[str, np.ndarray]:
     g_norm("Generator.OutputN", cfg.dim_g, conditional=False)
     init.conv("Generator.Output", cfg.dim_g, 3, 3, he_init=False)
 
+    def d_norm(name, channels):
+        if cfg.normalization_d:
+            init.norm(name, channels, cfg.n_labels if cfg.d_norm_conditional else None)
+
     optimized_res_block_disc1_params(init, cfg.dim_d)
-    no_norm = lambda name, channels: None
     for i, resample in ((2, "down"), (3, None), (4, None)):
         residual_block_params(
             init, f"Discriminator.{i}", input_dim=cfg.dim_d, output_dim=cfg.dim_d,
-            filter_size=3, resample=resample, norm=no_norm,
+            filter_size=3, resample=resample, norm=d_norm,
         )
     init.linear("Discriminator.Output", cfg.dim_d, 1)
     if cfg.conditional and cfg.acgan:

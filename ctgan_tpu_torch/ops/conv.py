@@ -8,14 +8,21 @@ one more row at the bottom than at the top.
 
 The two fused forms rewrite a conv followed or preceded by a 2x2 mean pool
 as one stride-2 conv with a transformed filter.  The transform is plain
-tensor math on the filter before ``F.conv2d``; the parameters are those of
-the unfused conv, so both arms share checkpoints.
+tensor math on the fp32 filter; the parameters are those of the unfused
+conv, so both arms share checkpoints.
+
+Every conv goes through ``core.matmul.conv``, which casts the input and the
+(transformed) filter to the compute dtype of the precision policy; the bias
+is added afterwards in the conv output's dtype, as the JAX package adds it
+(``ctgan_tpu/ops/conv.py:118,193,247``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..core.matmul import conv as _conv
 
 __all__ = ["same_padding", "conv2d", "conv_mean_pool2d", "mean_pool_conv2d"]
 
@@ -43,6 +50,10 @@ def _require_even_hw(fn_name: str, x: torch.Tensor) -> None:
         )
 
 
+def _add_bias(out: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    return out if b is None else out + b.to(out.dtype)[:, None, None]
+
+
 def conv2d(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, stride: int = 1
 ) -> torch.Tensor:
@@ -50,8 +61,8 @@ def conv2d(
     ph = same_padding(x.shape[-2], w.shape[-2], stride)
     pw = same_padding(x.shape[-1], w.shape[-1], stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, w, b, stride=stride, padding=(ph[0], pw[0]))
-    return F.conv2d(F.pad(x, (*pw, *ph)), w, b, stride=stride)
+        return _add_bias(_conv(x, w, stride=stride, padding=(ph[0], pw[0])), b)
+    return _add_bias(_conv(F.pad(x, (*pw, *ph)), w, stride=stride), b)
 
 
 def conv_mean_pool2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
@@ -63,7 +74,7 @@ def conv_mean_pool2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = 
     k = _require_odd("conv_mean_pool2d", w)
     _require_even_hw("conv_mean_pool2d", x)
     wf = 0.25 * sum(F.pad(w, (c, 1 - c, r, 1 - r)) for r in (0, 1) for c in (0, 1))
-    return F.conv2d(x, wf, b, stride=2, padding=(k - 1) // 2)
+    return _add_bias(_conv(x, wf, stride=2, padding=(k - 1) // 2), b)
 
 
 def mean_pool_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
@@ -74,4 +85,4 @@ def mean_pool_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = 
     k = _require_odd("mean_pool_conv2d", w)
     _require_even_hw("mean_pool_conv2d", x)
     wf = 0.25 * w.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-    return F.conv2d(x, wf, b, stride=2, padding=k - 1)
+    return _add_bias(_conv(x, wf, stride=2, padding=k - 1), b)

@@ -3,7 +3,9 @@
 Keep an element with probability ``keep_prob`` and scale it by
 ``1/keep_prob``.  The mask is made apart from ``x`` and multiplied in, so it
 is a constant to autodiff (no grad flows into it) at any order: the gradient
-penalty's double backward sees the same linear map as the forward.
+penalty's double backward sees the same linear map as the forward.  The
+mask is made in ``x.dtype``, so a bf16 activation gets a bf16 mask from the
+kernel, as ``pallas_dropout`` makes it (``ctgan_tpu/kernels/dropout.py:112-130``).
 """
 
 from __future__ import annotations

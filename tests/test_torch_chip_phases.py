@@ -13,9 +13,15 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
+from ctgan_tpu_torch.bridge import from_jax_params
+from ctgan_tpu_torch.core import Randomness, split_params
+from ctgan_tpu_torch.kernels import dropout_mask_reference
+from ctgan_tpu_torch.models import resnet_cifar
+from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
 from ctgan_tpu_torch.utils.images import png_bytes
 
 import torch_parity  # noqa: F401  (one intra-op thread per test worker)
@@ -91,3 +97,73 @@ def test_decode_png_reads_a_pil_file(chip_smoke, tmp_path):
         np.testing.assert_array_equal(chip_smoke.decode_png(tmp_path / "p.png"), img)
     except AssertionError as e:  # PIL may pick row filters; the check refuses those by design
         assert "filters" in str(e)
+
+
+def test_bf16_phases_rehearse_on_cpu(chip_smoke):
+    """cuda_vs_cpu and resume_equal under the bf16 policy (CPU against CPU
+    here: equal)."""
+    assert chip_smoke.phase_cuda_vs_cpu("cpu", precision="bfloat16") == 0.0
+    assert chip_smoke.phase_resume_equal("cpu", precision="bfloat16") == 0.0
+
+
+def test_uniform_launch_counts_of_the_card_run(chip_smoke):
+    """One dequantisation draw per critic substep and one per test_fn."""
+    cfg = app.Config(ITERS=10, save_every=5, sample_every=5)
+    assert chip_smoke._expected_uniform_launches(cfg, 0, "cuda") == 10 * 5 + 2
+    more = app.Config(ITERS=12, save_every=5, sample_every=5)
+    assert chip_smoke._expected_uniform_launches(more, 10, "cuda") == 2 * 5
+    assert chip_smoke._expected_uniform_launches(cfg, 0, "cpu") == 0
+
+
+class _Recorder:
+    """Passes each draw on and records its kind and shape."""
+
+    def __init__(self, rand):
+        self.rand, self.calls = rand, []
+
+    def __getattr__(self, kind):
+        def call(*args):
+            shape = args[0] if kind in ("dequant", "dropout_mask") else args[:1]
+            self.calls.append((kind, tuple(shape)))
+            return getattr(self.rand, kind)(*args)
+
+        return call
+
+
+def test_draws_phase_draws_what_the_trainer_draws(chip_smoke):
+    """The draws phase asks for one iteration's draws in the order and at
+    the shapes the trainer does (dim 16 here)."""
+    cfg = app.Config(DIM_G=16, DIM_D=16, BATCH_SIZE=4, N_CRITIC=2)
+    phase_rand = _Recorder(Randomness(0, "cpu"))
+    chip_smoke._iteration_draws(phase_rand, "cpu", cfg)
+    mcfg = resnet_cifar.ResnetCifarConfig(dim_g=16, dim_d=16)
+    trainer = AcganTrainer(
+        lambda p, n, lab, rand, noise=None: resnet_cifar.generator(p, n, lab, mcfg, rand, noise=noise),
+        lambda p, x, lab, kps, rand: resnet_cifar.discriminator(p, x, lab, kps, mcfg, rand),
+        AcganConfig(batch_size=4, critic_iters=2),
+    )
+    gen, disc, _ = split_params(from_jax_params(resnet_cifar.init_params(mcfg)), "Generator", "Discriminator")
+    trainer_rand = _Recorder(Randomness(0, "cpu"))
+    trainer.step(trainer.init_state(gen, disc), torch.zeros(2, 4, 3072, dtype=torch.uint8),
+                 torch.zeros(2, 4, dtype=torch.long), trainer_rand)
+    assert phase_rand.calls == trainer_rand.calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kp", [0.8, 0.5])
+def test_plain_mask_at_equals_the_plain_mask(chip_smoke, dtype, kp):
+    """The draws phase's sliced plain mask is the plain version's elements."""
+    shape = (6, 5, 4, 3)
+    index = chip_smoke._slice_index(360, k=16)
+    assert index[0] == 0 and index[-1] == 359 and len(index) < 360
+    whole = dropout_mask_reference(12345, shape, kp, dtype).reshape(-1)
+    assert torch.equal(chip_smoke.plain_mask_at(12345, kp, dtype, index), whole[index])
+
+
+def test_draws_phase_rehearses_on_cpu(chip_smoke):
+    """The draws phase at dim 16 (CPU against CPU here): iteration 0 whole,
+    the two later ones with their masks at slices."""
+    cfg = app.Config(DIM_G=16, DIM_D=16, BATCH_SIZE=4, N_CRITIC=2)
+    out = chip_smoke.phase_draws("cpu", cfg=cfg)
+    per_step = 5 + 2 * 9  # G: labels, noise, 3 masks; each critic: 3 draws and 6 masks
+    assert out["n_draws"] == 3 * per_step and out["n_sliced"] == 2 * (3 + 2 * 6)

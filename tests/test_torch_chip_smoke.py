@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
+from ctgan_tpu_torch.core import compute_dtype
 from ctgan_tpu_torch.kernels import dropout_mask
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -60,19 +61,25 @@ def test_main_refuses_without_a_card(capsys):
 
 
 def test_app_refuses_what_the_slice_lacks(tmp_path):
+    """Without a card the app refuses to start on cuda.  ``BF16`` and
+    ``NORMALIZATION_D``, which earlier slices refused, now train: ``BF16``
+    on the CPU runs fp32, as the JAX app does off the accelerator."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.main(cfg=_small_cfg(tmp_path))
-    with pytest.raises(NotImplementedError, match="BF16"):
-        app.main(cfg=_small_cfg(tmp_path, BF16=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="normalization_d"):
-        app.main(cfg=_small_cfg(tmp_path, NORMALIZATION_D=True), device="cpu")
+    _, records = app.main(cfg=_small_cfg(tmp_path / "bf16", ITERS=1, BF16=True), device="cpu")
+    assert compute_dtype() == torch.float32 and math.isfinite(records[-1]["gp"])
+    state, records = app.main(cfg=_small_cfg(tmp_path / "norm_d", ITERS=1, NORMALIZATION_D=True),
+                              device="cpu")
+    assert state.disc_params["Discriminator.2.N1.scale"].shape == (16,)
+    assert math.isfinite(records[-1]["gp"])
 
 
 def test_cli_flags_are_the_config_fields():
     cfg = app.parse_config(["--ITERS", "7", "--FUSE_MEANPOOL", "false", "--LR", "1e-3"])
     assert (cfg.ITERS, cfg.FUSE_MEANPOOL, cfg.LR, cfg.DIM_G) == (7, False, 1e-3, 128)
-    assert app.Config().CUDA_DROPOUT and not app.Config().BF16
+    assert app.Config().CUDA_DROPOUT and app.Config().BF16
+    assert not app.parse_config(["--BF16", "0"]).BF16
 
 
 @pytest.mark.parametrize("fuse_meanpool,fuse_ct,clean_pass", [

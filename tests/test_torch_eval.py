@@ -11,12 +11,14 @@ import pytest
 import jax.numpy as jnp
 
 from ctgan_tpu.core import init_context, split_params
+from ctgan_tpu.eval import inception2015
 from ctgan_tpu.eval import metrics as jax_metrics
 from ctgan_tpu.eval.scorer import TrainedScorer as JaxScorer
 from ctgan_tpu.eval.scorer import scorer_net as jax_scorer_net
 from ctgan_tpu.utils import load_checkpoint as jax_load_checkpoint
 
-from ctgan_tpu_torch.apps.common import pick_scorer
+from ctgan_tpu_torch.apps import common
+from ctgan_tpu_torch.apps.common import find_inception_file, pick_scorer
 from ctgan_tpu_torch.bridge import to_jax_params
 from ctgan_tpu_torch.data.synthetic import synthetic_images
 from ctgan_tpu_torch.eval import TrainedScorer, fid_from_features, inception_score_from_probs
@@ -148,3 +150,22 @@ def test_pick_scorer_refuses_when_inception_2015_is_present(tmp_path, monkeypatc
 def test_apply_needs_params():
     with pytest.raises(RuntimeError, match="fit"):
         TrainedScorer(3, 32, device="cpu").probs(np.zeros((2, 3072), np.uint8))
+
+
+def test_find_inception_file_searches_the_jax_locations():
+    """The same four default locations as the JAX package, in its order."""
+    assert common._INCEPTION_LOCATIONS == inception2015._DEFAULT_LOCATIONS
+
+
+@pytest.mark.parametrize("name", ["classify_image_graph_def.pb", "inception-2015-12-05.tgz"])
+def test_pick_scorer_refuses_a_weights_file_in_the_working_directory(name, tmp_path, monkeypatch):
+    """With ``weights/<file>`` under the working directory the JAX package
+    scores with Inception-2015, so the port finds the file and raises."""
+    monkeypatch.delenv("CTGAN_INCEPTION_PB", raising=False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "weights").mkdir()
+    (tmp_path / "weights" / name).write_bytes(b"graph")
+    found = find_inception_file()
+    assert found is not None and found == inception2015.find_inception_file()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pick_scorer(3, 32, str(tmp_path), device="cpu")

@@ -163,7 +163,7 @@ def test_load_gen_params_reads_both_packages(tmp_path, jax_blob):
     (dict(model="cifar"), NotImplementedError, "ROADMAP"),
     (dict(aot="x.bin"), NotImplementedError, "ROADMAP"),
     (dict(aot_save="x.bin"), NotImplementedError, "ROADMAP"),
-    (dict(bf16=True), NotImplementedError, "ROADMAP"),
+    (dict(bf16=True), SystemExit, "--ckpt"),  # --bf16 is served; a checkpoint is still needed
     (dict(model="nope"), ValueError, "unknown model"),
     (dict(), SystemExit, "--ckpt"),
     (dict(serve_iters=3, dim=8, batch=4), RuntimeError, "CUDA"),

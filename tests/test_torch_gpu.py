@@ -12,8 +12,13 @@ import math
 import pytest
 import torch
 
-from ctgan_tpu_torch.core import Randomness
-from ctgan_tpu_torch.kernels import dropout_mask, dropout_mask_reference
+from ctgan_tpu_torch.core import Randomness, precision_policy
+from ctgan_tpu_torch.kernels import (
+    dropout_mask,
+    dropout_mask_reference,
+    philox_uniform,
+    philox_uniform_reference,
+)
 from ctgan_tpu_torch.models import resnet_cifar
 from ctgan_tpu_torch.ops import dropout
 from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
@@ -67,6 +72,27 @@ def test_dropout_derivatives_on_the_card(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("shape", [(64, 3072), (640, 3072), (1001,), (3, 5)])
+def test_uniform_kernel_equals_plain_version(cuda, shape):
+    before = philox_uniform.launches
+    got = philox_uniform(77, shape, 1 / 128, cuda)
+    torch.cuda.synchronize()
+    assert philox_uniform.launches == before + 1
+    assert got.shape == shape and got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got.cpu(), philox_uniform_reference(77, shape, 1 / 128))
+
+
+@pytest.mark.parametrize("step", [0, 1, 781])
+def test_draws_on_the_card_equal_the_cpu(cuda, step):
+    draws = []
+    for device in (cuda, torch.device("cpu")):
+        r = Randomness(11, device).for_step(step)
+        draws.append([r.noise(128, 128), r.labels(128, 10), r.dequant((64, 3072)), r.gp_alpha(64),
+                      r.dropout_mask((64, 128, 8, 8), 0.5, torch.bfloat16, device)])
+    for got, want in zip(*draws):
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
 def test_trainer_step_on_the_card_goes_through_the_kernel(cuda):
     dim, batch, n_critic = 16, 4, 2
     mcfg = resnet_cifar.ResnetCifarConfig(dim_g=dim, dim_d=dim)
@@ -80,7 +106,10 @@ def test_trainer_step_on_the_card_goes_through_the_kernel(cuda):
     state = trainer.init_state(gen, disc)
     real = torch.randint(0, 256, (n_critic, batch, 3072), dtype=torch.uint8, device=cuda)
     labels = torch.randint(0, 10, (n_critic, batch), device=cuda)
-    before = dropout_mask.launches
-    metrics = trainer.step(state, real, labels, Randomness(0, cuda))
-    assert dropout_mask.launches - before == 3 + 6 * n_critic
-    assert all(math.isfinite(float(v)) for v in metrics.values())
+    for policy in ("float32", "bfloat16"):
+        before, uniforms = dropout_mask.launches, philox_uniform.launches
+        with precision_policy(policy):
+            metrics = trainer.step(state, real, labels, Randomness(0, cuda))
+        assert dropout_mask.launches - before == 3 + 6 * n_critic
+        assert philox_uniform.launches - uniforms == n_critic
+        assert all(math.isfinite(float(v)) for v in metrics.values())
