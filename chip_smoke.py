@@ -6,23 +6,39 @@
 Phases, each printed with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` builds every CUDA kernel (ptxas report on stderr);
+2. build: ``nvcc`` builds every CUDA kernel (ptxas report on stderr; the
+   registers of each kernel printed);
 3. kernel: the dropout-mask kernel against its plain PyTorch version at the
    flagship's three training mask shapes and its two dev-cost shapes, fp32
    and bf16, keep prob 0.8 and 0.5: bit for bit, keep fraction,
-   determinism; the Philox-uniform kernel against its plain version at the
-   dequantisation noise's shapes (a critic batch, the dev batch), bit for
-   bit; then each kernel's time beside its byte bound, the plain version's
-   time and one PyTorch call's (``bernoulli_``, ``uniform_``);
-4. draws: the run's draws on the card against the CPU's, bit for bit: the
+   determinism; a mask read from slot k of a seed table equals the mask of
+   the int seed that slot holds; the Philox-uniform kernel against its
+   plain version at the dequantisation noise's shapes (a critic batch, the
+   dev batch), bit for bit.  Then, at every one of those shapes, each
+   kernel's time beside one PyTorch call's (``bernoulli_`` in the same
+   dtype, ``uniform_``) and two bounds: the bytes written at 3.35 TB/s
+   (the H100 SXM's rate, for NVIDIA H100 80GB HBM3 at 700 W), and the
+   operations, from the instructions the build's SASS runs per
+   element (``kernels/sass.py``: ``cuobjdump -sass``) at the Programming
+   Guide's rates per SM and clock for compute capability 9.0 (integer 64)
+   on the card's SMs at its maximum SM clock (``nvidia-smi``); the larger
+   is the bound.  The plain versions' time at the record shapes;
+4. capture: one iteration's 38 Philox draws (the flagship's 33 bf16 masks
+   and 5 dequantisation draws, in the trainer's order) captured in one
+   CUDA graph against a static device seed table; for steps 0, 1 and 781
+   the step's seeds are copied into the table and the graph replayed, and
+   every draw must equal the eager draws of ``Randomness.for_step`` bit for
+   bit; then a replay's device and host time against the 38 eager
+   launches;
+5. draws: the run's draws on the card against the CPU's, bit for bit: the
    sampler's epoch permutations and every draw of ``Randomness.for_step``
    at three steps, at the flagship's shapes (the later steps' masks at
    slices); and the host cost per iteration of the draws the CPU makes;
-5. cuda_vs_cpu: two flagship iterations at dim 16 on the card and on the
+6. cuda_vs_cpu: two flagship iterations at dim 16 on the card and on the
    CPU with the same draws, in fp32 (TF32 off) and in bf16, substep by
    substep from the same state, losses, gradients and updated params
    compared; in bf16 first G and D on one batch;
-6. train: the flagship app (``apps.ct_gan_cifar_resnet.main``) at its
+7. train: the flagship app (``apps.ct_gan_cifar_resnet.main``) at its
    defaults (bf16 on the card) and full width for 10 iterations in a
    temporary ``out_dir``, through the train loop: checkpoints every 5
    iterations, a sample grid and the dev cost every 5, IS and FID at
@@ -32,10 +48,10 @@ Phases, each printed with its seconds:
    which must resume at iteration 10.  Then the same 10 iterations with
    ``BF16=False`` (fp32), and 4 iterations with ``NORMALIZATION_D=True``.
    Each kernel's launches are counted in each call;
-7. resume_equal: at dim 16, with cuDNN deterministic, 4 iterations
+8. resume_equal: at dim 16, with cuDNN deterministic, 4 iterations
    uninterrupted against 2 + checkpoint + a fresh trainer + 2, in fp32 and
    in bf16;
-8. jax_checkpoint: the JAX package's dim-128 checkpoint
+9. jax_checkpoint: the JAX package's dim-128 checkpoint
    ``runs/flagship_fused_r4/ckpt/ckpt_25000.npz`` and its scorer
    ``scorer.npz`` (sha256 printed) loaded into the port; the app's
    ``test_fn`` as the JAX app ran it at iteration 24999 (dev cost, IS over
@@ -77,6 +93,7 @@ from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
 from ctgan_tpu_torch.apps import generate
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
+from ctgan_tpu_torch.core.rng import SEED_SLOTS
 from ctgan_tpu_torch.data import DeviceSampler
 from ctgan_tpu_torch.eval import TrainedScorer
 from ctgan_tpu_torch.kernels import (
@@ -86,8 +103,9 @@ from ctgan_tpu_torch.kernels import (
     philox_uniform,
     philox_uniform_reference,
 )
-from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10
-from ctgan_tpu_torch.kernels.build import build_libraries
+from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10, seed_table
+from ctgan_tpu_torch.kernels.build import build_libraries, library_path
+from ctgan_tpu_torch.kernels.sass import disassemble, kernel_counts, op_bound_ms
 from ctgan_tpu_torch.models import resnet_cifar
 from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
 from ctgan_tpu_torch.train.optim import adam_mismatches
@@ -119,19 +137,38 @@ def _phase(name, fn, *args, **kwargs):
     return out
 
 
-def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> tuple[str, float]:
+    """The card's name and power limit, and its maximum SM clock in Hz."""
+    smi = _smi("name,power.limit")
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"device 0: {torch.cuda.get_device_name(0)}; count {torch.cuda.device_count()}")
-    return smi
+          f"device 0: {torch.cuda.get_device_name(0)}; count {torch.cuda.device_count()}; "
+          f"SMs {torch.cuda.get_device_properties(0).multi_processor_count}; max SM clock {clock_mhz:.0f} MHz")
+    return smi, clock_mhz * 1e6
+
+
+def ptxas_registers(report: str) -> dict[str, int]:
+    """Registers per kernel from ``-Xptxas -v``'s report."""
+    registers, function = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([A-Za-z0-9_]+)'?", line)
+        if m:
+            function = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and function:
+            registers[function] = int(m.group(1))
+    return registers
 
 
 def phase_build() -> None:
     for stem, report in build_libraries(SOURCES).items():
         print(f"--- nvcc {stem}\n{report}", file=sys.stderr, flush=True)
+        print(f"registers ({stem}): {json.dumps(ptxas_registers(report)) if report else 'built before'}")
 
 
 def flagship_mask_shapes(dim: int = 128, batch: int = 64, gen_bs_multiple: int = 2):
@@ -202,6 +239,23 @@ def _check_masks(device, seed: int) -> float:
     return max_err
 
 
+def _check_table_slots(device, seed: int) -> int:
+    """A draw read from slot k of a seed table equals the draw of the int
+    seed that slot holds, for both kernels.  Returns the slots checked."""
+    values = [seed ^ 0x5A5A5A5A, seed, 0, (1 << 32) - 1]
+    table = seed_table(values, device)
+    shape = flagship_mask_shapes()[1]
+    for slot, value in enumerate(values):
+        for dtype in (torch.float32, torch.bfloat16):
+            if not torch.equal(dropout_mask(table, shape, 0.8, dtype, device, slot=slot),
+                               dropout_mask(value, shape, 0.8, dtype, device)):
+                raise AssertionError(f"mask from slot {slot} != mask of seed {value} ({dtype})")
+        if not torch.equal(philox_uniform(table, dequant_shapes()[0], 1 / 128, device, slot=slot),
+                           philox_uniform(value, dequant_shapes()[0], 1 / 128, device)):
+            raise AssertionError(f"uniforms from slot {slot} != uniforms of seed {value}")
+    return len(values)
+
+
 def _check_uniforms(device, seed: int) -> float:
     max_err = 0.0
     for shape in dequant_shapes() + [(1001,)]:
@@ -219,54 +273,162 @@ def _check_uniforms(device, seed: int) -> float:
     return max_err
 
 
-def phase_kernel(device) -> list[dict]:
-    """Both kernels bit for bit against their plain versions, then timed.
-    Returns each kernel's record for the ``kernels`` line (launches are
-    added by ``main``)."""
+def launch_shapes() -> list[tuple[str, tuple, torch.dtype]]:
+    """Every (kernel, shape, dtype) the main path launches: the five mask
+    shapes in fp32 and bf16, the two dequantisation shapes."""
+    out = [("dropout_mask", shape, dtype) for shape in flagship_mask_shapes() + dev_cost_mask_shapes()
+           for dtype in (torch.float32, torch.bfloat16)]
+    return out + [("philox_uniform", shape, torch.float32) for shape in dequant_shapes()]
+
+
+def _sass_key(name: str, dtype: torch.dtype) -> str:
+    return name if name == "philox_uniform" else f"{name} {_dtype_name(dtype)}"
+
+
+def phase_kernel(device, clock_hz: float) -> list[dict]:
+    """Both kernels bit for bit against their plain versions and read from
+    seed tables, then timed at every launch shape beside the library call
+    and both bounds.  Returns each kernel's record for the ``kernels`` line
+    (launches are added by ``main``)."""
     seed = 12345
     mask_err = _check_masks(device, seed)
     uniform_err = _check_uniforms(device, seed)
+    n_slots = _check_table_slots(device, seed)
+    print(f"kernel: bit for bit at {len(launch_shapes())} shapes; {n_slots} table slots equal their int seeds")
 
-    times, bounds = {}, {}
-    for shape in flagship_mask_shapes() + dev_cost_mask_shapes():
-        for dtype in (torch.float32, torch.bfloat16):
-            key = f"{list(shape)} {_dtype_name(dtype)}"
-            times[key] = _time_ms(lambda: dropout_mask(seed, shape, 0.5, dtype, device),
-                                  200 if shape[0] <= 256 else 100)
-            bounds[key] = _bound_ms(math.prod(shape) * dtype.itemsize)
-    for shape in dequant_shapes():
-        key = f"{list(shape)} float32 uniform"
-        times[key] = _time_ms(lambda: philox_uniform(seed, shape, 1 / 128, device), 200)
-        bounds[key] = _bound_ms(math.prod(shape) * 4)
-    print("kernel_ms " + json.dumps(times))
-    print("kernel_byte_bound_ms " + json.dumps(bounds))
+    counts = kernel_counts(disassemble(library_path("dropout_mask")))
+    for key, c in counts.items():
+        per = {kind: round(k / c["elements"], 4) for kind, k in c["kinds"].items()}
+        print(f"sass {key}: loop step of {c['elements']} elements ({c['philox_blocks']:g} Philox blocks), "
+              f"{c['instructions']} instructions, by kind {json.dumps(c['kinds'])}, per element {json.dumps(per)}; "
+              f"integer per Philox block {c['kinds'].get('int', 0) / c['philox_blocks']:g}; "
+              f"opcodes {json.dumps(c['opcodes'])}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    table = seed_table([seed], device)
+    rows = {}
+    for name, shape, dtype in launch_shapes():
+        n = math.prod(shape)
+        reps = 200 if shape[0] <= 256 else 100
+        if name == "dropout_mask":
+            ms = _time_ms(lambda: dropout_mask(table, shape, 0.5, dtype, device), reps)
+            library_ms = _time_ms(lambda: torch.empty(shape, dtype=dtype, device=device).bernoulli_(0.5), reps)
+        else:
+            ms = _time_ms(lambda: philox_uniform(table, shape, 1 / 128, device), reps)
+            library_ms = _time_ms(lambda: torch.empty(shape, device=device).uniform_(0, 1 / 128), reps)
+        byte_ms = _bound_ms(n * dtype.itemsize)
+        op_ms, op_kind = op_bound_ms(counts[_sass_key(name, dtype)], n, sms, clock_hz)
+        rows[f"{name} {list(shape)} {_dtype_name(dtype)}"] = dict(
+            ms=ms, library_ms=library_ms, byte_bound_ms=byte_ms, op_bound_ms=op_ms, op_bound_kind=op_kind,
+            bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations")
+    for key, r in rows.items():
+        print(f"{key}: {r['ms'] * 1e3:.3f} us; library {r['library_ms'] * 1e3:.3f} us; bounds: bytes "
+              f"{r['byte_bound_ms'] * 1e3:.3f} us, operations {r['op_bound_ms'] * 1e3:.3f} us "
+              f"({r['op_bound_kind']}) -> {r['bound_by']}")
+    print("kernel_shapes " + json.dumps(rows))
 
     records = []
     shape = flagship_mask_shapes()[1]  # the largest training mask: the fused CT pair
-    library = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        library[dtype] = _time_ms(lambda: torch.empty(shape, dtype=dtype, device=device).bernoulli_(0.5), 200)
     plain_ms = _time_ms(lambda: dropout_mask_reference(seed, shape, 0.5, torch.bfloat16, device), 10)
-    key = f"{list(shape)} bfloat16"
-    print(f"dropout_mask {list(shape)}: bf16 {times[key]:.5f} ms (byte bound {bounds[key]:.5f} ms), "
-          f"fp32 {times[f'{list(shape)} float32']:.5f} ms; plain (bf16) {plain_ms:.5f} ms; "
-          f"bernoulli_ bf16 {library[torch.bfloat16]:.5f} ms, fp32 {library[torch.float32]:.5f} ms")
+    row = rows[f"dropout_mask {list(shape)} bfloat16"]
+    print(f"dropout_mask {list(shape)} bf16: plain version {plain_ms:.5f} ms")
     records.append(dict(
         name="dropout_mask", route="cuda", source="ctgan_tpu_torch/csrc/dropout_mask.cu",
-        replaces="ctgan_tpu/kernels/dropout.py:35", max_abs_err=mask_err, ms=times[key], plain_ms=plain_ms,
-        bound_ms=bounds[key], bound_by="bytes", library_ms=library[torch.bfloat16]))
+        replaces="ctgan_tpu/kernels/dropout.py:35", max_abs_err=mask_err, ms=row["ms"], plain_ms=plain_ms,
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
 
     shape = dequant_shapes()[0]  # one critic substep's dequantisation noise
-    key = f"{list(shape)} float32 uniform"
     plain_ms = _time_ms(lambda: philox_uniform_reference(seed, shape, 1 / 128, device), 10)
-    library_ms = _time_ms(lambda: torch.empty(shape, device=device).uniform_(0, 1 / 128), 200)
-    print(f"philox_uniform {list(shape)}: {times[key]:.5f} ms (byte bound {bounds[key]:.5f} ms); "
-          f"plain {plain_ms:.5f} ms; uniform_ {library_ms:.5f} ms")
+    row = rows[f"philox_uniform {list(shape)} float32"]
+    print(f"philox_uniform {list(shape)}: plain version {plain_ms:.5f} ms")
     records.append(dict(
         name="philox_uniform", route="cuda", source="ctgan_tpu_torch/csrc/dropout_mask.cu",
-        replaces="ctgan_tpu/train/trainer_acgan.py:228", max_abs_err=uniform_err, ms=times[key],
-        plain_ms=plain_ms, bound_ms=bounds[key], bound_by="bytes", library_ms=library_ms))
+        replaces="ctgan_tpu/train/trainer_acgan.py:228", max_abs_err=uniform_err, ms=row["ms"],
+        plain_ms=plain_ms, bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
     return records
+
+
+class _TableDraws:
+    """The Philox draws of a provider from the seed table ``seeds``, slot by
+    slot in the order they are asked for; the host draws (noise, labels, GP
+    alphas) are left out as None.  What a captured iteration launches."""
+
+    def __init__(self, seeds: torch.Tensor, device):
+        self.seeds, self.device, self.slot = seeds, torch.device(device), 0
+
+    def _take(self) -> int:
+        self.slot += 1
+        return self.slot - 1
+
+    def dropout_mask(self, shape, keep_prob, dtype, device):
+        return dropout_mask(self.seeds, shape, keep_prob, dtype, device, slot=self._take())
+
+    def dequant(self, shape):
+        return philox_uniform(self.seeds, tuple(shape), 1.0 / 128, self.device, slot=self._take())
+
+    def noise(self, *args):
+        return None
+
+    labels = gp_alpha = noise
+
+
+def table_draws_equal(captured: list, eager: list) -> int:
+    """Compares the table's draws with a provider's eager draws of the same
+    iteration where the table drew; returns how many were compared."""
+    compared = 0
+    for i, (c, e) in enumerate(zip(captured, eager, strict=True)):
+        if c is None:
+            continue
+        if c.dtype != e.dtype or not torch.equal(c, e):
+            raise AssertionError(f"draw {i}: the table's draw != the provider's eager draw")
+        compared += 1
+    return compared
+
+
+def phase_capture(device, seed: int = 0, cfg: app.Config | None = None, steps=(0, 1, 781)) -> dict:
+    """One iteration's Philox draws captured in a CUDA graph against a
+    static seed table, replayed with each step's seeds copied in, each draw
+    equal to ``Randomness(seed).for_step(step)``'s eager one bit for bit;
+    then a replay's time against the eager launches."""
+    device = torch.device(device)
+    cfg = cfg or app.Config()
+    static = torch.zeros(SEED_SLOTS, dtype=torch.int32, device=device)
+    _iteration_draws(_TableDraws(static, device), device, cfg)  # loads and sizes the kernels first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dropout_mask.launches, philox_uniform.launches
+    with torch.cuda.graph(graph):
+        captured = _iteration_draws(_TableDraws(static, device), device, cfg)
+    launched = dropout_mask.launches - before[0], philox_uniform.launches - before[1]
+    n_critic = cfg.N_CRITIC
+    if launched != (3 + 6 * n_critic, n_critic):
+        raise AssertionError(f"the capture launched {launched} kernels, expected {(3 + 6 * n_critic, n_critic)}")
+    for step in steps:
+        rand = Randomness(seed, device).for_step(step)
+        eager = _iteration_draws(rand, device, cfg)
+        static.copy_(rand.seeds)
+        graph.replay()
+        torch.cuda.synchronize()
+        compared = table_draws_equal(captured, eager)
+        if compared != sum(launched):
+            raise AssertionError(f"compared {compared} draws at step {step}")
+    eager_fn = lambda: _iteration_draws(_TableDraws(static, device), device, cfg)
+    # 10 eager iterations enqueue within _time_ms's sleep, so the events time the device's work
+    times = {"replay_device_ms": _time_ms(graph.replay, 50), "eager_device_ms": _time_ms(eager_fn, 10)}
+    for key, fn, reps in (("replay_host_ms", graph.replay, 50), ("eager_host_ms", eager_fn, 10)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times[key] = (time.perf_counter() - t0) / reps * 1e3  # enqueue only
+        torch.cuda.synchronize()
+    print(f"capture: {sum(launched)} draws ({launched[0]} masks, {launched[1]} uniforms) in one graph, replayed at "
+          f"steps {list(steps)}, each equal to the eager draws bit for bit; per iteration: replay "
+          f"{times['replay_device_ms'] * 1e3:.3f} us device, {times['replay_host_ms'] * 1e3:.3f} us host; "
+          f"{sum(launched)} eager launches {times['eager_device_ms'] * 1e3:.3f} us device, "
+          f"{times['eager_host_ms'] * 1e3:.3f} us host")
+    del graph, captured
+    return dict(draws=sum(launched), steps=list(steps), **times)
 
 
 def _iteration_draws(rand, device, cfg: app.Config) -> list:
@@ -295,7 +457,7 @@ class _MaskSeeds:
         return getattr(self.rand, kind)
 
     def dropout_mask(self, shape, keep_prob, dtype, device):
-        return (self.rand._seed(), tuple(shape), keep_prob, dtype)
+        return (int(self.rand.seed_values[self.rand.take_slot()]), tuple(shape), keep_prob, dtype)
 
 
 def plain_mask_at(seed: int, keep_prob: float, dtype: torch.dtype, index: torch.Tensor) -> torch.Tensor:
@@ -847,9 +1009,10 @@ def main() -> int:
         return 1
     device = torch.device("cuda")
     t0 = time.perf_counter()
-    smi = _phase("device", phase_device)
+    smi, clock_hz = _phase("device", phase_device)
     _phase("build", phase_build)
-    kernels = _phase("kernel", phase_kernel, device)
+    kernels = _phase("kernel", phase_kernel, device, clock_hz)
+    capture = _phase("capture", phase_capture, device)
     draws = _phase("draws", phase_draws, device)
     _phase("cuda_vs_cpu", phase_cuda_vs_cpu, device)
     _phase("cuda_vs_cpu_bf16", phase_cuda_vs_cpu, device, precision="bfloat16")
@@ -881,6 +1044,7 @@ def main() -> int:
           f"launches {resume['launches']} + {resume['uniform_launches']}")
     print(f"resume_equal: max param diff {json.dumps(resume_diff)}")
     print(f"draws: {json.dumps(draws)}")
+    print(f"capture: {json.dumps(capture)}")
     print(f"serve: {json.dumps(jax_ckpt['serve'])}")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
         print(f"{name} launches on the main path: "

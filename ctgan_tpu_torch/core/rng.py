@@ -14,6 +14,12 @@ uninterrupted run draws, with no generator state in the file.  They do not
 depend on the device either, as the JAX package's draws do not depend on the
 platform: a checkpoint written on the card and resumed on the CPU goes on
 with the same data and noise.
+
+Each provider draws its Philox seeds up front into a *seed table* of
+``SEED_SLOTS`` slots on its device, one pinned copy: the k-th mask or
+dequantisation draw reads slot k.  The kernels read the seed from the table,
+so a CUDA graph captured against a static table draws a step's masks and
+noise once that step's table is copied into it.
 """
 
 from __future__ import annotations
@@ -21,10 +27,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.dropout import dropout_mask_reference, philox_uniform
+from ..kernels.dropout import dropout_mask_reference, philox_uniform, seed_table
 from ..ops.dropout import make_mask
 
-__all__ = ["Randomness"]
+__all__ = ["Randomness", "SEED_SLOTS"]
+
+# Philox draws a provider can hand out: an iteration takes 38 (33 masks and
+# 5 dequantisation draws), a dev cost 7.
+SEED_SLOTS = 64
 
 
 class Randomness:
@@ -34,10 +44,13 @@ class Randomness:
       ``torch.Generator`` and go to ``device`` in one pinned, non-blocking
       copy each.
     * Dequantisation noise (a uniform per pixel, the large draw) and dropout
-      masks come from Philox keyed on a fresh 32-bit seed of a host NumPy
+      masks come from Philox keyed on a 32-bit seed of a host NumPy
       generator: the CUDA kernels on the card, their plain versions on the
-      CPU, bit for bit the same.  ``cuda_dropout=False`` makes masks with
-      the plain version on any device.
+      CPU, bit for bit the same.  The ``SEED_SLOTS`` seeds are drawn here,
+      in order, into ``seed_values`` (host) and ``seeds`` (the table on
+      ``device``); each Philox draw takes the next slot, and one past the
+      last raises.  ``cuda_dropout=False`` makes masks with the plain
+      version on any device.
     """
 
     def __init__(self, seed: int, device, *, cuda_dropout: bool = True):
@@ -45,7 +58,10 @@ class Randomness:
         self.device = torch.device(device)
         self._gen = torch.Generator()
         self._gen.manual_seed(seed)
-        self._seeds = np.random.default_rng(seed)
+        seeder = np.random.default_rng(seed)
+        self.seed_values = np.array([seeder.integers(0, 1 << 32) for _ in range(SEED_SLOTS)], np.uint32)
+        self.seeds = self._to(seed_table(self.seed_values))
+        self._slot = 0
         self._cuda_dropout = cuda_dropout
 
     def for_step(self, step: int) -> "Randomness":
@@ -56,13 +72,19 @@ class Randomness:
 
     def _to(self, t: torch.Tensor) -> torch.Tensor:
         """A host draw on the device: on the card one copy from pinned
-        memory that does not block the host."""
+        memory that does not block the host (a fresh pinned tensor each
+        time, so no later draw overwrites one in flight)."""
         if self.device.type != "cuda":
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _seed(self) -> int:
-        return int(self._seeds.integers(0, 1 << 32))
+    def take_slot(self) -> int:
+        """The next slot of the seed table."""
+        if self._slot == SEED_SLOTS:
+            raise RuntimeError(f"a provider hands out {SEED_SLOTS} Philox seeds; take a fresh one "
+                               "(for_step) for more draws")
+        self._slot += 1
+        return self._slot - 1
 
     def noise(self, n: int, dim: int) -> torch.Tensor:
         return self._to(torch.randn(n, dim, generator=self._gen))
@@ -72,14 +94,14 @@ class Randomness:
 
     def dequant(self, shape) -> torch.Tensor:
         """U[0, 1/128) added to the rescaled uint8 reals."""
-        return philox_uniform(self._seed(), tuple(shape), 1.0 / 128, self.device)
+        return philox_uniform(self.seeds, tuple(shape), 1.0 / 128, self.device, slot=self.take_slot())
 
     def gp_alpha(self, n: int) -> torch.Tensor:
         """One interpolation weight per example, ``[n, 1]``."""
         return self._to(torch.rand(n, 1, generator=self._gen))
 
     def dropout_mask(self, shape, keep_prob, dtype: torch.dtype, device) -> torch.Tensor:
-        seed = self._seed()
+        slot = self.take_slot()
         if self._cuda_dropout:
-            return make_mask(seed, shape, keep_prob, dtype, device)
-        return dropout_mask_reference(seed, shape, keep_prob, dtype, device)
+            return make_mask(self.seeds, shape, keep_prob, dtype, device, slot=slot)
+        return dropout_mask_reference(int(self.seed_values[slot]), shape, keep_prob, dtype, device)

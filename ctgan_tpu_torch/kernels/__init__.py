@@ -3,11 +3,17 @@
 ``SOURCES`` names every kernel source under ``csrc/`` (built by
 :func:`build.build_libraries`)."""
 
-from .dropout import dropout_mask, dropout_mask_reference, philox_uniform, philox_uniform_reference
+from .dropout import (
+    dropout_mask,
+    dropout_mask_reference,
+    philox_uniform,
+    philox_uniform_reference,
+    seed_table,
+)
 
 SOURCES = ["dropout_mask"]
 
 __all__ = [
     "SOURCES", "dropout_mask", "dropout_mask_reference", "philox_uniform",
-    "philox_uniform_reference",
+    "philox_uniform_reference", "seed_table",
 ]

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCE_DIR", "build_libraries", "load_library", "nvcc_path"]
+__all__ = ["SOURCE_DIR", "build_libraries", "library_path", "load_library", "nvcc_path"]
 
 SOURCE_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ctgan_tpu_torch"
@@ -42,7 +42,7 @@ def nvcc_path() -> str:
     return found
 
 
-def _library_path(stem: str) -> Path:
+def library_path(stem: str) -> Path:
     digest = hashlib.sha256((SOURCE_DIR / f"{stem}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{stem}.so"
@@ -55,7 +55,7 @@ def build_libraries(stems: list[str]) -> dict[str, str]:
     Raises if a build fails or outlasts its time limit."""
     procs = {}
     for stem in stems:
-        lib = _library_path(stem)
+        lib = library_path(stem)
         if lib.exists():
             continue
         lib.parent.mkdir(parents=True, exist_ok=True)
@@ -88,5 +88,5 @@ def load_library(stem: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu``, built first if needed."""
     if stem not in _loaded:
         build_libraries([stem])
-        _loaded[stem] = ctypes.CDLL(str(_library_path(stem)))
+        _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
     return _loaded[stem]

@@ -10,6 +10,13 @@ The bits are those of the counter-based generator keyed on ``(seed, 0)`` with
 counter ``(i // 4, 0, 0)``, word ``i % 4``: the kernel and
 :func:`dropout_mask_reference` agree bit for bit.
 
+The seed is an int, or a *seed table*: a 1-D ``torch.int32`` tensor on the
+output's device holding uint32 bit patterns (:func:`seed_table`), read at
+``slot``.  The kernels read ``seeds[slot]`` from device memory, so a CUDA
+graph that captured a launch draws anew when the table is overwritten; an
+int seed is a one-element table.  The plain versions read ``seeds[slot]``
+on the host.
+
 :func:`dropout_mask` is the wrapper the model calls: on a CUDA device it
 launches the kernel (and counts the launch in ``dropout_mask.launches``), on
 the CPU it returns the plain version.
@@ -34,14 +41,15 @@ import torch
 from .build import load_library
 
 __all__ = [
-    "dropout_mask", "dropout_mask_reference", "keep_threshold", "philox4x32_10", "philox_uniform",
-    "philox_uniform_reference",
+    "dropout_mask", "dropout_mask_reference", "keep_threshold", "philox4x32_10",
+    "philox_uniform", "philox_uniform_reference", "seed_table",
 ]
 
 _U32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_ELEMENTS = 1 << 34  # the kernels count chunks and Philox counters in 32 bits
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,15 +84,42 @@ def keep_threshold(keep_prob: float) -> int:
     return min(int(keep_prob * (1 << 32)), (1 << 32) - 1)
 
 
+def seed_table(seeds, device="cpu") -> torch.Tensor:
+    """A seed table on ``device``: the uint32 ``seeds`` as the bit patterns
+    of a 1-D ``torch.int32`` tensor."""
+    values = np.asarray(seeds, dtype=np.int64).reshape(-1)
+    if values.size and (values.min() < 0 or values.max() > _U32):
+        raise ValueError(f"seeds must be uint32, got {values}")
+    return torch.from_numpy(values.astype(np.uint32).view(np.int32)).to(device)
+
+
 def _check_seed(seed: int) -> None:
     if not 0 <= seed <= _U32:
         raise ValueError(f"seed must be a uint32, got {seed}")
 
 
-def _check(seed: int, keep_prob, dtype: torch.dtype) -> None:
+def _check_table(seeds: torch.Tensor, slot: int, device: torch.device) -> None:
+    """A table the kernel can read at ``slot`` for an output on ``device``."""
+    if seeds.dtype != torch.int32 or seeds.dim() != 1 or not seeds.is_contiguous():
+        raise TypeError(f"a seed table is a contiguous 1-D int32 tensor, not {seeds.dtype} {tuple(seeds.shape)}")
+    if seeds.device != device:
+        raise ValueError(f"the seed table lies on {seeds.device}, the output on {device}")
+    if not 0 <= slot < seeds.numel():
+        raise IndexError(f"slot {slot} outside a seed table of {seeds.numel()}")
+
+
+def _seed_value(seed, slot: int) -> int:
+    """The uint32 seed an int or ``seeds[slot]`` gives (read on the host)."""
+    if isinstance(seed, torch.Tensor):
+        _check_table(seed, slot, seed.device)
+        return int(seed[slot]) & _U32
+    _check_seed(seed)
+    return seed
+
+
+def _check(keep_prob, dtype: torch.dtype) -> None:
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"dropout mask dtype must be float32 or bfloat16, not {dtype}")
-    _check_seed(seed)
     if not isinstance(keep_prob, torch.Tensor) and not 0.0 < keep_prob <= 1.0:
         raise ValueError(f"keep_prob must lie in (0, 1], got {keep_prob}")
 
@@ -96,13 +131,14 @@ def _bits(seed: int, n: int, device) -> torch.Tensor:
 
 
 def dropout_mask_reference(
-    seed: int, shape, keep_prob, dtype: torch.dtype = torch.float32, device="cpu"
+    seed, shape, keep_prob, dtype: torch.dtype = torch.float32, device="cpu", *, slot: int = 0
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same Philox bits in int64
-    tensor arithmetic.  ``keep_prob`` may also be a 0-d tensor (the plain
-    dropout arm for a traced keep probability)."""
-    _check(seed, keep_prob, dtype)
-    bits = _bits(seed, math.prod(shape), device).reshape(shape)
+    tensor arithmetic.  ``seed`` is an int or a seed table read at
+    ``slot``.  ``keep_prob`` may also be a 0-d tensor (the plain dropout arm
+    for a traced keep probability)."""
+    _check(keep_prob, dtype)
+    bits = _bits(_seed_value(seed, slot), math.prod(shape), device).reshape(shape)
     if isinstance(keep_prob, torch.Tensor):
         kp = keep_prob.to(device=device, dtype=torch.float64)
         thresh = torch.clamp(torch.floor(kp * float(1 << 32)), max=float(_U32)).to(torch.int64)
@@ -113,11 +149,11 @@ def dropout_mask_reference(
     return torch.where(bits < thresh, scale, torch.zeros((), device=device)).to(dtype)
 
 
-def philox_uniform_reference(seed: int, shape, scale: float = 1.0, device="cpu") -> torch.Tensor:
+def philox_uniform_reference(seed, shape, scale: float = 1.0, device="cpu", *, slot: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the uniform kernel: fp32 values in [0,
-    ``scale``) from the same Philox bits."""
-    _check_seed(seed)
-    u = (_bits(seed, math.prod(shape), device) >> 8).to(torch.float32) * 2.0**-24
+    ``scale``) from the same Philox bits; ``seed`` as in
+    :func:`dropout_mask_reference`."""
+    u = (_bits(_seed_value(seed, slot), math.prod(shape), device) >> 8).to(torch.float32) * 2.0**-24
     return (u * torch.tensor(np.float32(scale), device=device)).reshape(shape)
 
 
@@ -126,48 +162,67 @@ def _entry(name: str):
     """A C entry point of the library, built and loaded on first use."""
     fn = getattr(load_library("dropout_mask"), name)
     fn.argtypes = {
-        "ctgan_dropout_mask": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
-                               ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-        "ctgan_philox_uniform": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float,
-                                 ctypes.c_void_p],
+        "ctgan_dropout_mask": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "ctgan_philox_uniform": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_void_p],
     }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, out: torch.Tensor, *args) -> None:
-    """Launch ``name`` on ``out``'s device and current stream; raises if
-    the launch fails."""
+def _launch(name: str, out: torch.Tensor, seed, slot: int, *args) -> None:
+    """Launch ``name`` on ``out``'s device and current stream with the seed
+    ``seed`` (an int: a one-element table) or ``seeds[slot]``; raises if the
+    launch fails."""
     if not out.is_contiguous() or out.data_ptr() % 16:
         raise RuntimeError(f"{name} needs a contiguous, 16-byte aligned output")
+    if out.numel() >= _MAX_ELEMENTS:
+        raise ValueError(f"{name} takes fewer than 2**34 elements, not {out.numel()}")
+    if not isinstance(seed, torch.Tensor):
+        seed, slot = seed_table([seed], out.device), 0
+    _check_table(seed, slot, out.device)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = _entry(name)(out.data_ptr(), out.numel(), *args, stream)
+        rc = _entry(name)(out.data_ptr(), out.numel(), seed.data_ptr(), slot, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
+def _output_device(seed, slot: int, device) -> torch.device:
+    """``device``, checked against what the kernels run on, with the seed:
+    an int in range, or a table on the CPU for a CPU output (a table for a
+    CUDA output is checked against the output at the launch)."""
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cuda or cpu, not {device}")
+    if not isinstance(seed, torch.Tensor):
+        _check_seed(seed)
+    elif device.type == "cpu":
+        _check_table(seed, slot, device)
+    return device
+
+
 def dropout_mask(
-    seed: int, shape, keep_prob: float, dtype: torch.dtype = torch.float32, device="cuda"
+    seed, shape, keep_prob: float, dtype: torch.dtype = torch.float32, device="cuda", *, slot: int = 0
 ) -> torch.Tensor:
-    """Scaled keep-mask (0 or ``1/keep_prob``) of ``shape`` in ``dtype``.
+    """Scaled keep-mask (0 or ``1/keep_prob``) of ``shape`` in ``dtype``,
+    from the uint32 ``seed`` or the seed table ``seed`` at ``slot``.
 
     On a CUDA device this launches the kernel on the current stream; on the
     CPU it returns :func:`dropout_mask_reference`.  ``keep_prob`` is a static
     float (a tensor keep probability takes the plain arm in
     :func:`ctgan_tpu_torch.ops.dropout.dropout`)."""
-    device = torch.device(device)
-    _check(seed, keep_prob, dtype)
+    device = _output_device(seed, slot, device)
+    _check(keep_prob, dtype)
     if isinstance(keep_prob, torch.Tensor):
         raise TypeError("the kernel takes a static keep_prob; use dropout_mask_reference")
     if device.type == "cpu":
-        return dropout_mask_reference(seed, shape, keep_prob, dtype, device)
-    if device.type != "cuda":
-        raise ValueError(f"dropout_mask runs on cuda or cpu, not {device}")
+        return dropout_mask_reference(seed, shape, keep_prob, dtype, device, slot=slot)
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.numel() == 0:
         return out
-    _launch("ctgan_dropout_mask", out, seed, keep_threshold(keep_prob),
+    _launch("ctgan_dropout_mask", out, seed, slot, keep_threshold(keep_prob),
             float(np.float32(1.0 / keep_prob)), _DTYPE_CODES[dtype])
     dropout_mask.launches += 1
     return out
@@ -176,21 +231,19 @@ def dropout_mask(
 dropout_mask.launches = 0
 
 
-def philox_uniform(seed: int, shape, scale: float = 1.0, device="cuda") -> torch.Tensor:
-    """fp32 uniforms in [0, ``scale``) of ``shape``, a function of ``seed``.
+def philox_uniform(seed, shape, scale: float = 1.0, device="cuda", *, slot: int = 0) -> torch.Tensor:
+    """fp32 uniforms in [0, ``scale``) of ``shape``, a function of the
+    uint32 ``seed`` or of the seed table ``seed`` at ``slot``.
 
     On a CUDA device this launches the kernel on the current stream; on the
     CPU it returns :func:`philox_uniform_reference`."""
-    device = torch.device(device)
-    _check_seed(seed)
+    device = _output_device(seed, slot, device)
     if device.type == "cpu":
-        return philox_uniform_reference(seed, shape, scale, device)
-    if device.type != "cuda":
-        raise ValueError(f"philox_uniform runs on cuda or cpu, not {device}")
+        return philox_uniform_reference(seed, shape, scale, device, slot=slot)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _launch("ctgan_philox_uniform", out, seed, float(np.float32(scale)))
+    _launch("ctgan_philox_uniform", out, seed, slot, float(np.float32(scale)))
     philox_uniform.launches += 1
     return out
 

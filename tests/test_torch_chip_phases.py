@@ -167,3 +167,37 @@ def test_draws_phase_rehearses_on_cpu(chip_smoke):
     out = chip_smoke.phase_draws("cpu", cfg=cfg)
     per_step = 5 + 2 * 9  # G: labels, noise, 3 masks; each critic: 3 draws and 6 masks
     assert out["n_draws"] == 3 * per_step and out["n_sliced"] == 2 * (3 + 2 * 6)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_capture_phase_draws_rehearse_on_cpu(chip_smoke, step):
+    """What the capture phase launches into its graph, run eagerly here: an
+    iteration's Philox draws from a copy of a step's seed table (the host
+    draws left out) equal that step's provider's draws, 38 of them."""
+    cfg = app.Config(DIM_G=16, DIM_D=16, BATCH_SIZE=4)
+    rand = Randomness(0, "cpu").for_step(step)
+    table = rand.seeds.clone()
+    eager = chip_smoke._iteration_draws(rand, "cpu", cfg)
+    from_table = chip_smoke._iteration_draws(chip_smoke._TableDraws(table, "cpu"), "cpu", cfg)
+    assert sum(d is None for d in from_table) == 2 + 2 * cfg.N_CRITIC  # labels, noise; noise, GP alphas
+    assert chip_smoke.table_draws_equal(from_table, eager) == 38
+    other = chip_smoke._iteration_draws(Randomness(0, "cpu").for_step(step + 1), "cpu", cfg)
+    with pytest.raises(AssertionError, match="draw 2"):
+        chip_smoke.table_draws_equal(from_table, other)
+
+
+def test_ptxas_registers_and_launch_shapes(chip_smoke):
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN1a19dropout_mask_kernelItEEvPT_lPKjijf' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a19dropout_mask_kernelItEEvPT_lPKjijf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN1a21philox_uniform_kernelEPflPKjif' for 'sm_90a'
+ptxas info    : Used 26 registers, used 0 barriers
+"""
+    assert chip_smoke.ptxas_registers(report) == {"_ZN1a19dropout_mask_kernelItEEvPT_lPKjijf": 24,
+                                                  "_ZN1a21philox_uniform_kernelEPflPKjif": 26}
+    shapes = chip_smoke.launch_shapes()
+    assert len(shapes) == 12 and shapes[-1] == ("philox_uniform", (640, 3072), torch.float32)
+    assert {chip_smoke._sass_key(name, dtype) for name, _, dtype in shapes} == {
+        "dropout_mask float32", "dropout_mask bfloat16", "philox_uniform"}

@@ -32,10 +32,10 @@ DEVICES = ["cpu", "meta", "cuda"]
 def host_only(monkeypatch):
     """Every draw stays on the host: no copy, the kernels' plain versions."""
     monkeypatch.setattr(Randomness, "_to", lambda self, t: t)
-    monkeypatch.setattr(rng_mod, "philox_uniform",
-                        lambda seed, shape, scale, device: philox_uniform_reference(seed, shape, scale))
-    monkeypatch.setattr(rng_mod, "make_mask",
-                        lambda seed, shape, kp, dtype, device: dropout_mask_reference(seed, shape, kp, dtype))
+    monkeypatch.setattr(rng_mod, "philox_uniform", lambda seeds, shape, scale, device, slot:
+                        philox_uniform_reference(seeds, shape, scale, slot=slot))
+    monkeypatch.setattr(rng_mod, "make_mask", lambda seeds, shape, kp, dtype, device, slot:
+                        dropout_mask_reference(seeds, shape, kp, dtype, slot=slot))
 
 
 def _step_draws(device, step: int) -> list[torch.Tensor]:
@@ -101,3 +101,41 @@ def test_philox_uniform_wrapper_on_the_cpu():
         philox_uniform(3, (4,), 1.0, "meta")
     with pytest.raises(ValueError, match="uint32"):
         philox_uniform(1 << 32, (4,), 1.0, "cpu")
+
+
+def _philox_draws(rand) -> list[tuple[torch.Tensor, float | None]]:
+    """One flagship iteration's 38 Philox draws at a small width, in the
+    trainer's order (G: 3 masks; each of 5 critic substeps: the
+    dequantisation noise, the CT pair's 3 masks, the GP pass's 3), with
+    host draws between them as the trainer makes them.  Each with its keep
+    probability (None for the dequantisation noise)."""
+    masks = lambda shape, dtype: [(rand.dropout_mask(shape, kp, dtype, "cpu"), kp) for kp in (0.8, 0.5, 0.5)]
+    out = masks((8, 4, 2, 2), torch.bfloat16)
+    for _ in range(5):
+        rand.noise(2, 8)
+        out += [(rand.dequant((2, 12)), None), *masks((8, 4, 2, 2), torch.bfloat16)]
+        rand.gp_alpha(2)
+        out += masks((2, 4, 2, 2), torch.float32)
+    return out
+
+
+@pytest.mark.parametrize("step", [0, 1, 781])
+@pytest.mark.parametrize("cuda_dropout", [True, False])
+def test_table_draws_are_the_int_seed_draws(step, cuda_dropout):
+    """Every Philox draw of ``Randomness(seed).for_step(step)`` through its
+    seed table equals the plain version of the k-th scalar seed of the NumPy
+    generator seeded from ``SeedSequence([seed, step])``, built here on its
+    own: the bits each draw had when the seed was passed by value."""
+    seed = 7
+    derived = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+    seeder = np.random.default_rng(derived)
+    got = _philox_draws(Randomness(seed, "cpu", cuda_dropout=cuda_dropout).for_step(step))
+    assert len(got) == 38
+    for k, (draw, kp) in enumerate(got):
+        value = int(seeder.integers(0, 1 << 32))
+        shape = tuple(draw.shape)
+        if kp is None:
+            want = philox_uniform_reference(value, shape, 1 / 128)
+        else:
+            want = dropout_mask_reference(value, shape, kp, draw.dtype)
+        assert torch.equal(draw, want), k

@@ -18,6 +18,7 @@ from ctgan_tpu_torch.kernels import (
     dropout_mask_reference,
     philox_uniform,
     philox_uniform_reference,
+    seed_table,
 )
 from ctgan_tpu_torch.models import resnet_cifar
 from ctgan_tpu_torch.ops import dropout
@@ -113,3 +114,76 @@ def test_trainer_step_on_the_card_goes_through_the_kernel(cuda):
         assert dropout_mask.launches - before == 3 + 6 * n_critic
         assert philox_uniform.launches - uniforms == n_critic
         assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+SEEDS = [2024, 0xFFFFFFFF, 7]
+MAIN_PATH_MASKS = [(128, 128, 8, 8), (256, 128, 8, 8), (64, 128, 8, 8), (2560, 128, 8, 8), (640, 128, 8, 8)]
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_MASKS + [(1001,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_kernel_equals_plain_version(cuda, shape, dtype):
+    """The mask read from a device seed table at each slot is the plain
+    version of the seed that slot holds."""
+    table = seed_table(SEEDS, cuda)
+    for slot, value in enumerate(SEEDS):
+        got = dropout_mask(table, shape, 0.5, dtype, cuda, slot=slot)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dropout_mask_reference(value, shape, 0.5, dtype, cuda))
+
+
+@pytest.mark.parametrize("shape", [(64, 3072), (640, 3072), (1001,)])
+def test_table_uniform_kernel_equals_plain_version(cuda, shape):
+    table = seed_table(SEEDS, cuda)
+    for slot, value in enumerate(SEEDS):
+        got = philox_uniform(table, shape, 1 / 128, cuda, slot=slot)
+        torch.cuda.synchronize()
+        assert torch.equal(got, philox_uniform_reference(value, shape, 1 / 128, cuda))
+
+
+def test_table_on_another_device_raises(cuda):
+    with pytest.raises(ValueError, match="seed table"):
+        dropout_mask(seed_table(SEEDS), (64, 128), 0.5, torch.float32, cuda)
+    with pytest.raises(IndexError):
+        philox_uniform(seed_table(SEEDS, cuda), (64, 128), 1.0, cuda, slot=len(SEEDS))
+
+
+def _draws(provider, device):
+    """Masks in both dtypes and dequantisation noise, in one order."""
+    return [provider.dropout_mask((64, 128, 8, 8), 0.8, torch.bfloat16, device), provider.dequant((64, 3072)),
+            provider.dropout_mask((256, 128, 8, 8), 0.5, torch.bfloat16, device),
+            provider.dropout_mask((64, 128, 8, 8), 0.5, torch.float32, device)]
+
+
+class _Slots:
+    def __init__(self, seeds):
+        self.seeds, self.slot = seeds, -1
+
+    def dropout_mask(self, shape, kp, dtype, device):
+        self.slot += 1
+        return dropout_mask(self.seeds, shape, kp, dtype, device, slot=self.slot)
+
+    def dequant(self, shape):
+        self.slot += 1
+        return philox_uniform(self.seeds, shape, 1 / 128, self.seeds.device, slot=self.slot)
+
+
+def test_captured_draws_replay_the_eager_ones(cuda):
+    """A CUDA graph of the kernels against a static seed table draws, after
+    each step's table is copied in, what that step's provider draws."""
+    static = torch.zeros(8, dtype=torch.int32, device=cuda)
+    _draws(_Slots(static), cuda)  # loads the kernels before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _draws(_Slots(static), cuda)
+    replayed = []
+    for step in (0, 1):
+        rand = Randomness(5, cuda).for_step(step)
+        eager = _draws(rand, cuda)
+        static.copy_(rand.seeds[:8])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+        replayed.append([c.clone() for c in captured])
+    assert not any(torch.equal(a, b) for a, b in zip(*replayed))

@@ -14,7 +14,14 @@ import pytest
 import torch
 
 from ctgan_tpu_torch.core import Randomness
-from ctgan_tpu_torch.kernels import dropout_mask, dropout_mask_reference
+from ctgan_tpu_torch.core.rng import SEED_SLOTS
+from ctgan_tpu_torch.kernels import (
+    dropout_mask,
+    dropout_mask_reference,
+    philox_uniform,
+    philox_uniform_reference,
+    seed_table,
+)
 from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10
 from ctgan_tpu_torch.ops import dropout, make_mask
 
@@ -135,3 +142,67 @@ def test_grad_and_grad_of_grad_equal_those_of_a_constant_mask():
     want = derivs(lambda v: v * mask)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+VALUES = [12345, 0, U32, 0x80000000]
+
+
+@pytest.mark.parametrize("slot", range(len(VALUES)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_slot_equals_its_int_seed(slot, dtype):
+    """A mask or uniform read from slot k of a seed table is the one of the
+    int seed that slot holds, through the wrapper and the plain version."""
+    table = seed_table(VALUES)
+    want = dropout_mask_reference(VALUES[slot], SHAPE, 0.8, dtype)
+    assert torch.equal(dropout_mask(table, SHAPE, 0.8, dtype, "cpu", slot=slot), want)
+    assert torch.equal(dropout_mask_reference(table, SHAPE, 0.8, dtype, slot=slot), want)
+    assert torch.equal(make_mask(table, SHAPE, 0.8, dtype, "cpu", slot=slot), want)
+    assert torch.equal(philox_uniform(table, (5, 7), 1 / 128, "cpu", slot=slot),
+                       philox_uniform_reference(VALUES[slot], (5, 7), 1 / 128))
+
+
+def test_seed_table_holds_uint32_bit_patterns():
+    table = seed_table(VALUES)
+    assert table.dtype == torch.int32 and table.shape == (len(VALUES),)
+    assert [v & U32 for v in table.tolist()] == VALUES
+    for bad in ([-1], [1 << 32]):
+        with pytest.raises(ValueError):
+            seed_table(bad)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(slot=-1), dict(slot=len(VALUES)), dict(seeds=seed_table(VALUES).long()),
+    dict(seeds=seed_table(VALUES).float()), dict(seeds=seed_table(VALUES).reshape(2, 2)),
+    dict(seeds=seed_table(VALUES * 2)[::2]), dict(seeds=seed_table(VALUES).to("meta")),
+])
+@pytest.mark.parametrize("kernel", ["dropout_mask", "philox_uniform"])
+def test_wrappers_reject_a_bad_table_or_slot(bad, kernel):
+    """A slot outside the table, a table of another dtype, rank or layout,
+    or on another device than the output raises, on every path."""
+    args = dict(seeds=seed_table(VALUES), slot=0) | bad
+    with pytest.raises((TypeError, ValueError, IndexError)):
+        if kernel == "dropout_mask":
+            dropout_mask(args["seeds"], SHAPE, 0.5, torch.float32, "cpu", slot=args["slot"])
+        else:
+            philox_uniform(args["seeds"], SHAPE, 1.0, "cpu", slot=args["slot"])
+    if args["seeds"].device.type == "cpu":
+        with pytest.raises((TypeError, ValueError, IndexError)):
+            dropout_mask_reference(args["seeds"], SHAPE, 0.5, slot=args["slot"])
+
+
+def test_provider_hands_out_its_table_slot_by_slot_and_raises_past_it():
+    rand = Randomness(3, "cpu")
+    assert rand.seeds.dtype == torch.int32 and rand.seeds.shape == (SEED_SLOTS,)
+    assert [v & U32 for v in rand.seeds.tolist()] == rand.seed_values.tolist()
+    for k in range(SEED_SLOTS):
+        seed = int(rand.seed_values[k])
+        if k % 2:
+            assert torch.equal(rand.dropout_mask((4, 4), 0.5, torch.float32, "cpu"),
+                               dropout_mask_reference(seed, (4, 4), 0.5))
+        else:
+            assert torch.equal(rand.dequant((4, 4)), philox_uniform_reference(seed, (4, 4), 1 / 128))
+    with pytest.raises(RuntimeError, match="Philox seeds"):
+        rand.dropout_mask((4, 4), 0.5, torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="Philox seeds"):
+        rand.dequant((4, 4))
+    assert rand.noise(2, 3).shape == (2, 3)  # the host draws have no slots
