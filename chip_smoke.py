@@ -9,7 +9,8 @@ Phases, each printed with its seconds:
 2. build: ``nvcc`` builds every CUDA kernel (ptxas report on stderr; the
    registers of each kernel printed);
 3. kernel: the dropout-mask kernel against its plain PyTorch version at the
-   flagship's three training mask shapes and its two dev-cost shapes, fp32
+   flagship's three training mask shapes and its two dev-cost shapes and the
+   64 px critic's three shapes, fp32
    and bf16, keep prob 0.8 and 0.5: bit for bit, keep fraction,
    determinism; a mask read from slot k of a seed table equals the mask of
    the int seed that slot holds; the Philox-uniform kernel against its
@@ -37,7 +38,9 @@ Phases, each printed with its seconds:
 6. cuda_vs_cpu: two flagship iterations at dim 16 on the card and on the
    CPU with the same draws, in fp32 (TF32 off) and in bf16, substep by
    substep from the same state, losses, gradients and updated params
-   compared; in bf16 first G and D on one batch;
+   compared; in bf16 first G and D on one batch; then cuda_vs_cpu_gan:
+   the same for the unconditional trainer and the 64 px "Good" ResNet at
+   dim 16, wgan-ct in fp32 and bf16 and wgan-gp (batch norm in D) in fp32;
 7. train: the flagship app (``apps.ct_gan_cifar_resnet.main``) at its
    defaults (bf16 on the card) and full width for 10 iterations in a
    temporary ``out_dir``, through the train loop: checkpoints every 5
@@ -60,7 +63,22 @@ Phases, each printed with its seconds:
    as the gate against layout and loading errors, and the dev cost's spread
    over 8 other seeds of its draws; then ``apps.generate`` on the same
    checkpoint: a 100-sample grid, and ``--batch 1024 --serve_iters 20`` in
-   fp32 and with ``--bf16``.
+   fp32 and with ``--bf16``;
+10. train64: the 64 px app (``apps.ct_gan_64x64.main``) at its defaults
+    (bf16, dim 64, batch 64, 5 critic iterations, wgan-ct) for 10
+    iterations of the 4,096-image pool: checkpoints and grids every 5, IS
+    and FID on 1,000 images at iteration 9 with a scorer fitted on the
+    card; each step timed between two synchronisations, 63 mask launches
+    per iteration; then ``main`` to 12, which resumes at 10, and 4
+    iterations in fp32;
+11. resume_equal_gan: the 64 px step at dim 16, 4 iterations against 2 +
+    checkpoint + 2, in fp32 and bf16, max param diff 0;
+12. good64_checkpoint: the JAX run's ``runs/good64_r5/params_latest.npz``
+    through the bridge, 1,000 images of fixed noise in batches of 100 in
+    fp32 and bf16, IS with the committed ``scorer.npz`` gated against the
+    JAX package's (``GOOD64_IS_REF``) and, loosely, the run's logged IS;
+    fp32 G on the card against the CPU on 100 images; ``apps.generate
+    --model good64`` at batch 1024, fp32 and ``--bf16``.
 
 The last lines are the card, the kernel record and ``{"ok": true, ...}``.
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -89,12 +107,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
 from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
 from ctgan_tpu_torch.apps import generate
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
 from ctgan_tpu_torch.core.rng import SEED_SLOTS
-from ctgan_tpu_torch.data import DeviceSampler
+from ctgan_tpu_torch.data import DeviceSampler, synthetic_images
 from ctgan_tpu_torch.eval import TrainedScorer
 from ctgan_tpu_torch.kernels import (
     SOURCES,
@@ -106,8 +125,8 @@ from ctgan_tpu_torch.kernels import (
 from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10, seed_table
 from ctgan_tpu_torch.kernels.build import build_libraries, library_path
 from ctgan_tpu_torch.kernels.sass import disassemble, kernel_counts, op_bound_ms
-from ctgan_tpu_torch.models import resnet_cifar
-from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
+from ctgan_tpu_torch.models import good64, resnet_cifar
+from ctgan_tpu_torch.train import AcganConfig, AcganTrainer, GanConfig, GanState, GanTrainer
 from ctgan_tpu_torch.train.optim import adam_mismatches
 from ctgan_tpu_torch.utils import load_checkpoint, save_checkpoint
 
@@ -128,6 +147,19 @@ BF16_GRAD_BOUND = 32 * U
 # In fp32 only a ReLU on its threshold moves them: 6.3e-3 on an H100 (PERF.md); about three times that.
 FP32_GRAD_BOUND = 2e-2
 FP32_FLIP_BOUND = 1e-3  # fp32: gradient mass of the elements stepping the other way (1.4e-5 on an H100)
+GOOD64_RUN = ROOT / "runs" / "good64_r5"
+# The JAX package's inception score of runs/good64_r5/params_latest.npz on the noise, batches and
+# scorer of phase_good64_checkpoint, G and scorer in fp32 on the CPU.  Reproduce with
+#   python -m pytest -m slow tests/test_torch_good64.py -k is_ref
+# (tests/test_torch_good64.py::jax_checkpoint_scores; FID 0.5380285601428767).
+GOOD64_IS_REF = 6.381908684380933
+GOOD64_IS_GATE_FP32, GOOD64_IS_GATE_BF16 = 0.05, 0.20
+# what the JAX run logged at iteration 11999 (runs/good64_r5/log.pkl: bf16 on a TPU, other noise):
+# a loose gate against layouts and loading (a wrong transpose scores about 1-3)
+GOOD64_LOGGED_IS = 6.68983
+GOOD64_LAYOUT_GATE = 1.0
+GOOD64_CPU_BOUND = 1e-2  # fp32 G on the card (TF32 convs) against the CPU, on tanh outputs
+TRAIN64_ITERS, RESUME64_ITERS = 10, 12
 
 
 def _phase(name, fn, *args, **kwargs):
@@ -182,6 +214,12 @@ def dev_cost_mask_shapes(dim: int = 128, n_dev: int = 640):
     return [(4 * n_dev, dim, 8, 8), (n_dev, dim, 8, 8)]
 
 
+def good64_mask_shapes(dim: int = 64, batch: int = 64):
+    """NCHW shapes of the 64 px critic's masks, after its blocks 2, 3 and 4
+    (keep 0.8, 0.5, 0.5): 21 launches each per 1G+5D iteration."""
+    return [(batch, 4 * dim, 16, 16), (batch, 8 * dim, 8, 8), (batch, 8 * dim, 4, 4)]
+
+
 def _time_ms(fn, n: int) -> float:
     """Device time per call: the calls queue behind a sleeping kernel, so
     the events measure the device's work, not the host's launch rate."""
@@ -213,7 +251,7 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _check_masks(device, seed: int) -> float:
     max_err = 0.0
-    for shape in flagship_mask_shapes() + dev_cost_mask_shapes():
+    for shape in flagship_mask_shapes() + dev_cost_mask_shapes() + good64_mask_shapes():
         n = math.prod(shape)
         for dtype in (torch.float32, torch.bfloat16):
             for kp in (0.8, 0.5):
@@ -274,9 +312,11 @@ def _check_uniforms(device, seed: int) -> float:
 
 
 def launch_shapes() -> list[tuple[str, tuple, torch.dtype]]:
-    """Every (kernel, shape, dtype) the main path launches: the five mask
-    shapes in fp32 and bf16, the two dequantisation shapes."""
-    out = [("dropout_mask", shape, dtype) for shape in flagship_mask_shapes() + dev_cost_mask_shapes()
+    """Every (kernel, shape, dtype) the main paths launch: the flagship's
+    five mask shapes and the 64 px critic's three in fp32 and bf16, the two
+    dequantisation shapes."""
+    out = [("dropout_mask", shape, dtype)
+           for shape in flagship_mask_shapes() + dev_cost_mask_shapes() + good64_mask_shapes()
            for dtype in (torch.float32, torch.bfloat16)]
     return out + [("philox_uniform", shape, torch.float32) for shape in dequant_shapes()]
 
@@ -588,6 +628,85 @@ def _one_batch(device, params, mcfg, seed: int) -> list[torch.Tensor]:
     return [t.float().cpu() for t in (fake, *out)]
 
 
+def _substep_checker(device, *, bf16: bool, lr: float, beta1: float, zero_grad, elementwise: bool = True):
+    """``check(network, state_before, dev_state, cpu_state, dev_metrics,
+    cpu_metrics)`` for ``_lockstep``/``_lockstep_gan``, with the report it
+    fills and the failures it collects (the bounds of
+    ``phase_cuda_vs_cpu``; ``elementwise=False`` leaves out its elementwise
+    check of iteration 0's params).  A substep's gradient is read back from
+    TF-Adam's first moment: ``(m - beta1 * m_before) / (1 - beta1)``."""
+    tol = dict(rel_tol=BF16_BOUND, abs_tol=BF16_BOUND) if bf16 else dict(rel_tol=1e-3, abs_tol=1e-5)
+    grad_bound, flip_bound = (BF16_GRAD_BOUND, BF16_BOUND) if bf16 else (FP32_GRAD_BOUND, FP32_FLIP_BOUND)
+    report = {"diff": 0.0, "moved": 0, "total": 0, "grad_l1": 0.0, "flipped_mass": 0.0}
+    failures = []
+
+    def grad(opt, before, k):
+        m = opt["m"][k].detach().cpu().numpy().astype(np.float64)
+        return (m - beta1 * before["m"][k].numpy().astype(np.float64)) / (1.0 - beta1)
+
+    def check(network, before, dev, cpu, got, want):
+        at = f"{network} substep at step {cpu.step}"
+        for k, w in want.items():
+            if bf16 and k.startswith("acc_"):
+                continue
+            if not math.isclose(float(got[k]), float(w), **tol):
+                failures.append(f"{at}: {k} {float(got[k])} on {device} vs {float(w)} on cpu")
+        if network == "gen" and cpu.step == 0:
+            return  # the G update of step 0 is dropped
+        field, opt = ("gen_params", "gen_opt") if network == "gen" else ("disc_params", "disc_opt")
+        ours = {k: v.detach().cpu().numpy() for k, v in getattr(dev, field).items()}
+        theirs = {k: v.detach().numpy() for k, v in getattr(cpu, field).items()}
+        start = {k: v.detach().numpy() for k, v in getattr(before, field).items()}
+        if elementwise and not bf16 and cpu.step == 0:
+            bad = adam_mismatches(ours, theirs, lr=lr, n_updates=1, zero_grad=zero_grad)
+            if bad:
+                failures.append(f"{at}: params {bad}")
+        mass = flipped = grad_l1 = 0.0
+        for k in theirs:
+            diff = np.abs(ours[k] - theirs[k])
+            report["diff"] = max(report["diff"], float(diff.max()))
+            report["moved"] += int(np.sum(diff > 1e-6))
+            report["total"] += diff.size
+            other_way = np.sign(ours[k] - start[k]) != np.sign(theirs[k] - start[k])
+            g = grad(getattr(cpu, opt), getattr(before, opt), k)
+            grad_l1 += float(np.sum(np.abs(grad(getattr(dev, opt), getattr(before, opt), k) - g)))
+            flipped += float(np.sum(np.abs(g[other_way])))
+            mass += float(np.sum(np.abs(g)))
+        report["grad_l1"] = max(report["grad_l1"], grad_l1 / mass)
+        report["flipped_mass"] = max(report["flipped_mass"], flipped / mass)
+        if grad_l1 > grad_bound * mass:
+            failures.append(f"{at}: gradients {grad_l1 / mass:.3g} of the CPU's L1 mass apart (> {grad_bound:.3g})")
+        if flipped > flip_bound * mass:
+            failures.append(f"{at}: elements carrying {flipped / mass:.3g} of the gradient's mass stepped "
+                            f"the other way (> {flip_bound:.3g})")
+
+    return check, report, failures
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """fp32 convolutions in full fp32 on the card (cuDNN's default is TF32)."""
+    old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old[0]
+        torch.set_float32_matmul_precision(old[1])
+
+
+def _lockstep_report(what: str, device, precision: str, iters: int, report: dict, failures: list) -> float:
+    line = (f"{what}{device} vs cpu in {precision}, {iters} iterations substep by substep: max param diff "
+            f"{report['diff']:.3g}, {report['moved'] / max(report['total'], 1):.5f} of the updated elements "
+            f"beyond 1e-6; at most {report['grad_l1']:.3g} of a substep's gradient mass apart, "
+            f"{report['flipped_mass']:.3g} stepping the other way")
+    print(line)
+    if failures:
+        raise AssertionError(f"{line}\n" + "\n".join(failures))
+    return report["diff"]
+
+
 def phase_cuda_vs_cpu(device, *, precision="float32", dim=16, batch=4, n_critic=2, iters=2,
                       seed=0) -> float:
     """``iters`` iterations on ``device`` against the CPU with the same
@@ -626,49 +745,8 @@ def phase_cuda_vs_cpu(device, *, precision="float32", dim=16, batch=4, n_critic=
     acfg = AcganConfig(batch_size=batch, critic_iters=n_critic, iters=100)
     params = resnet_cifar.init_params(mcfg, seed)
     bf16 = precision == "bfloat16"
-    tol = dict(rel_tol=BF16_BOUND, abs_tol=BF16_BOUND) if bf16 else dict(rel_tol=1e-3, abs_tol=1e-5)
-    grad_bound, flip_bound = (BF16_GRAD_BOUND, BF16_BOUND) if bf16 else (FP32_GRAD_BOUND, FP32_FLIP_BOUND)
-    zero_grad = resnet_cifar.zero_grad_params(mcfg)
-    report = {"diff": 0.0, "moved": 0, "total": 0, "grad_l1": 0.0, "flipped_mass": 0.0}
-    failures = []
-
-    def check(network, before, dev, cpu, got, want):
-        at = f"{network} substep at step {cpu.step}"
-        for k, w in want.items():
-            if bf16 and k.startswith("acc_"):
-                continue
-            if not math.isclose(float(got[k]), float(w), **tol):
-                failures.append(f"{at}: {k} {float(got[k])} on {device} vs {float(w)} on cpu")
-        if network == "gen" and cpu.step == 0:
-            return  # the G update of step 0 is dropped
-        field, opt = ("gen_params", "gen_opt") if network == "gen" else ("disc_params", "disc_opt")
-        ours = {k: v.detach().cpu().numpy() for k, v in getattr(dev, field).items()}
-        theirs = {k: v.detach().numpy() for k, v in getattr(cpu, field).items()}
-        start = {k: v.detach().numpy() for k, v in getattr(before, field).items()}
-        grads_dev, grads = getattr(dev, opt)["m"], getattr(cpu, opt)["m"]
-        if not bf16 and cpu.step == 0:
-            bad = adam_mismatches(ours, theirs, lr=acfg.lr, n_updates=1, zero_grad=zero_grad)
-            if bad:
-                failures.append(f"{at}: params {bad}")
-        mass = flipped = grad_l1 = 0.0
-        for k in theirs:
-            diff = np.abs(ours[k] - theirs[k])
-            report["diff"] = max(report["diff"], float(diff.max()))
-            report["moved"] += int(np.sum(diff > 1e-6))
-            report["total"] += diff.size
-            other_way = np.sign(ours[k] - start[k]) != np.sign(theirs[k] - start[k])
-            g = grads[k].numpy().astype(np.float64)
-            grad_l1 += float(np.sum(np.abs(grads_dev[k].cpu().numpy().astype(np.float64) - g)))
-            flipped += float(np.sum(np.abs(g[other_way])))
-            mass += float(np.sum(np.abs(g)))
-        report["grad_l1"] = max(report["grad_l1"], grad_l1 / mass)
-        report["flipped_mass"] = max(report["flipped_mass"], flipped / mass)
-        if grad_l1 > grad_bound * mass:
-            failures.append(f"{at}: gradients {grad_l1 / mass:.3g} of the CPU's L1 mass apart (> {grad_bound:.3g})")
-        if flipped > flip_bound * mass:
-            failures.append(f"{at}: elements carrying {flipped / mass:.3g} of the gradient's mass stepped "
-                            f"the other way (> {flip_bound:.3g})")
-
+    check, report, failures = _substep_checker(device, bf16=bf16, lr=acfg.lr, beta1=acfg.beta1,
+                                               zero_grad=resnet_cifar.zero_grad_params(mcfg))
     with precision_policy(precision):
         if bf16:
             for i, (g, w) in enumerate(zip(_one_batch(device, params, mcfg, seed),
@@ -676,22 +754,64 @@ def phase_cuda_vs_cpu(device, *, precision="float32", dim=16, batch=4, n_critic=
                 dev = float((g - w).abs().max() / w.abs().max())
                 if dev > BF16_BOUND:
                     raise AssertionError(f"bf16 output {i} on {device} vs cpu: {dev:.3g} of its scale")
-        old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
-        torch.backends.cudnn.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-        try:
+        with _no_tf32():
             _lockstep(device, params, mcfg, acfg, iters=iters, seed=seed, check=check)
-        finally:
-            torch.backends.cudnn.allow_tf32 = old[0]
-            torch.set_float32_matmul_precision(old[1])
-    line = (f"{device} vs cpu in {precision}, {iters} iterations substep by substep: max param diff "
-            f"{report['diff']:.3g}, {report['moved'] / max(report['total'], 1):.5f} of the updated elements "
-            f"beyond 1e-6; at most {report['grad_l1']:.3g} of a substep's gradient mass apart, "
-            f"{report['flipped_mass']:.3g} stepping the other way")
-    print(line)
-    if failures:
-        raise AssertionError(f"{line}\n" + "\n".join(failures))
-    return report["diff"]
+    return _lockstep_report("", device, precision, iters, report, failures)
+
+
+def _good64_trainer(dim: int, gcfg: GanConfig) -> GanTrainer:
+    return GanTrainer(
+        lambda p, n, rand, noise=None: good64.generator(p, n, rand, dim=dim, noise=noise),
+        lambda p, x, rand: good64.discriminator(p, x, rand, dim=dim, mode=gcfg.mode),
+        gcfg,
+    )
+
+
+def _lockstep_gan(device, trainer: GanTrainer, params, *, iters, seed, check) -> None:
+    """``_lockstep`` for the unconditional trainer: reals in [-1, 1] of a
+    seeded NumPy draw, each substep on the CPU and on ``device`` from the
+    same state with the same draws."""
+    gen, disc, _ = split_params(from_jax_params(params), "Generator", "Discriminator")
+    state = trainer.init_state(gen, disc)
+    data = np.random.default_rng(seed)
+    rand_dev, rand_cpu = Randomness(seed, device), Randomness(seed, "cpu")
+    n_critic, batch = trainer.cfg.critic_iters, trainer.cfg.batch_size
+    for _ in range(iters):
+        real = torch.from_numpy(data.uniform(-1, 1, (n_critic, batch, 3 * 64 * 64)).astype(np.float32))
+        before, dev = _copy_state(state, "cpu"), _copy_state(state, device)
+        got = {"gen_cost": trainer.gen_substep(dev, rand_dev)}
+        want = {"gen_cost": trainer.gen_substep(state, rand_cpu)}
+        check("gen", before, dev, state, got, want)
+        for i in range(n_critic):
+            before, dev = _copy_state(state, "cpu"), _copy_state(state, device)
+            got = trainer.critic_substep(dev, real[i].to(device), rand_dev)
+            want = trainer.critic_substep(state, real[i], rand_cpu)
+            check("disc", before, dev, state, got, want)
+        state.step += 1
+
+
+def phase_cuda_vs_cpu_gan(device, *, precision="float32", mode="wgan-ct", dim=16, batch=4, n_critic=2,
+                          iters=2, seed=0) -> float:
+    """``phase_cuda_vs_cpu`` for the unconditional trainer and the 64 px
+    "Good" ResNet at ``dim``, ``mode`` (wgan-ct: layer norm in D; wgan-gp:
+    batch norm, whose CPU form the port writes out), with the same bounds on
+    the losses and on each substep's gradient mass.  Two checks are left
+    out, because correct runs miss them: the elementwise check of iteration
+    0's params (with batch norm in D, 0.34% of a tensor's elements had
+    gradients within rounding of zero and stepped the other way, on an
+    H100; the gradient mass they carry, 2.4e-5, is what the bound holds),
+    and the one-batch bf16 check of G and D (a rounding that lands the
+    other way under G's batch norm over 4 images carries into every later
+    element: 24 U between correct bf16 runs on the CPU,
+    tests/test_torch_good64.py)."""
+    gcfg = GanConfig(mode=mode, batch_size=batch, critic_iters=n_critic, iters=100)
+    trainer = _good64_trainer(dim, gcfg)
+    bf16 = precision == "bfloat16"
+    check, report, failures = _substep_checker(device, bf16=bf16, lr=gcfg.lr, beta1=gcfg.beta1,
+                                               zero_grad=good64.zero_grad_params(mode), elementwise=False)
+    with precision_policy(precision), _no_tf32():
+        _lockstep_gan(device, trainer, good64.init_params(dim, mode, seed), iters=iters, seed=seed, check=check)
+    return _lockstep_report(f"good64 {mode}: ", device, precision, iters, report, failures)
 
 
 class _Tee(io.TextIOBase):
@@ -996,6 +1116,236 @@ def phase_jax_checkpoint(device, out_dir: str) -> dict:
                 dev_cost_spread=spread)
 
 
+def good64_masks_per_iteration(cfg: app64.Config) -> int:
+    """The 64 px app's mask launches per iteration: 3 in the G substep and,
+    per critic substep, 3 in each D pass: real, fake, and for wgan-ct the
+    CT's second real pass, with a GP the interpolates."""
+    passes = {"wgan-ct": 4, "wgan-CT": 4, "wgan-gp": 3}.get(cfg.MODE, 2)
+    return 3 + (1 if cfg.MODE == "dcgan" else cfg.CRITIC_ITERS) * 3 * passes
+
+
+def _run_main64(cfg: app64.Config, device) -> tuple:
+    """``app64.main`` with the mask kernel's launches counted from 0, each
+    step timed on the host clock between two synchronisations, and stdout
+    kept.  Returns (state, records, mask launches, uniform launches, step
+    seconds per iteration, stdout, seconds)."""
+    make_step_fn, step_s = app64.make_step_fn, []
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+
+    def timed(app64_run):
+        step = make_step_fn(app64_run)
+
+        def step_fn(state, rand):
+            sync()
+            t0 = time.perf_counter()
+            out = step(state, rand)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        return step_fn
+
+    dropout_mask.launches = philox_uniform.launches = 0
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    app64.make_step_fn = timed
+    try:
+        with contextlib.redirect_stdout(tee):
+            state, records = app64.main(cfg=cfg, device=device)
+    finally:
+        app64.make_step_fn = make_step_fn
+    return (state, records, dropout_mask.launches, philox_uniform.launches, step_s, tee.buf.getvalue(),
+            time.perf_counter() - t0)
+
+
+def phase_train64(device, cfg: app64.Config, start: int = 0) -> dict:
+    """One ``app64.main`` in ``cfg.out_dir`` (fresh, or resuming at
+    ``start``): launches (``good64_masks_per_iteration`` each, none of the
+    uniform kernel: no dequantisation on this path), files, grids, finite
+    metrics, IS/FID in range, G's samples; seconds per step over iterations
+    1-9 (synchronised) and peak device memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state, records, launches, uniforms, step_s, stdout, seconds = _run_main64(cfg, device)
+    if start:
+        want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
+        if want not in stdout:
+            raise AssertionError(f"no line {want!r} in the resumed run's output")
+    expected = (cfg.ITERS - start) * good64_masks_per_iteration(cfg) if device.type == "cuda" else 0
+    if (launches, uniforms) != (expected, 0):
+        raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times, "
+                             f"expected {expected}, 0")
+    if state.step != cfg.ITERS or records[-1]["iteration"] != cfg.ITERS - 1:
+        raise AssertionError(f"run ended at step {state.step}, records {records[-1]}")
+    out = Path(cfg.out_dir)
+    tests = [it for it in range(start, cfg.ITERS) if it % cfg.sample_every == cfg.sample_every - 1]
+    saves = [n for n in range(start + 1, cfg.ITERS + 1) if n % cfg.save_every == 0]
+    files = [f"ckpt/ckpt_{n}.npz" for n in saves] + ["log.pkl", "log.ndjson"]
+    files += (["params_latest.npz"] if saves else []) + [f"samples_{it}.png" for it in tests]
+    missing = [f for f in files if not (out / f).is_file()]
+    if missing:
+        raise AssertionError(f"missing in out_dir: {missing}")
+    for it in tests:
+        grid = decode_png(out / f"samples_{it}.png")
+        if grid.shape != (512, 512, 3):
+            raise AssertionError(f"samples_{it}.png is {grid.shape}, not an 8x8 grid of 64x64 RGB")
+    last = records[-1]
+    for k in ("wgan", "ct", "gp", "disc_cost", "gen_cost"):
+        if not math.isfinite(last[k]):
+            raise AssertionError(f"{k} = {last[k]}")
+    evals = [{k: r[k] for k in ("iteration", "inception score", "fid")} for r in records if "inception score" in r]
+    for r in evals:
+        if not (math.isfinite(r["fid"]) and 1.0 <= r["inception score"] <= 10.0):
+            raise AssertionError(f"IS/FID out of range: {r}")
+    with torch.no_grad():
+        samples = good64.generator(state.gen_params, 64, Randomness(1, device), dim=cfg.DIM)
+    want_dtype = torch.bfloat16 if cfg.BF16 and device.type == "cuda" else torch.float32
+    if samples.dtype != want_dtype or samples.shape != (64, 3 * 64 * 64):
+        raise AssertionError(f"generator samples are {samples.dtype} {tuple(samples.shape)}")
+    if not bool(torch.isfinite(samples).all()) or samples.abs().max() > 1:
+        raise AssertionError("generator samples are not finite values in [-1, 1]")
+    fit = re.search(r"IS scorer: fitted in ([0-9.]+) s", stdout)
+    first = start + (start == 0)  # a fresh run's iteration 0 warms cuDNN up
+    return dict(launches=launches, uniform_launches=uniforms, per_iteration=launches // max(cfg.ITERS - start, 1),
+                timed=f"{first}-{cfg.ITERS - 1}", s_per_iter=float(np.mean(step_s[first - start:])),
+                s_per_iter_min=float(min(step_s[first - start:])),
+                peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+                seconds=seconds, evals=evals, last=last, scorer_fit_s=float(fit.group(1)) if fit else None)
+
+
+def phase_resume_equal_gan(device, *, precision="float32", dim=16, batch=4, n_critic=2, iters=4,
+                           seed=0) -> float:
+    """``phase_resume_equal`` for the 64 px app's step (``app64.make_step_fn``:
+    the pool batch, scaling and flips, then ``GanTrainer.step``) at
+    ``dim``: ``iters`` iterations uninterrupted against ``iters // 2``, a
+    checkpoint written and read back into a fresh app, and the rest, cuDNN
+    deterministic.  Returns the largest param difference, which must be 0."""
+    device = torch.device(device)
+    data = np.random.default_rng(seed)
+    pool = (data.integers(0, 256, (64, 3 * 64 * 64), dtype=np.uint8), data.integers(0, 10, 64))
+    cfg = app64.Config(DIM=dim, BATCH_SIZE=batch, CRITIC_ITERS=n_critic, BF16=False, seed=seed)
+
+    def run(run_app, state, start, stop):
+        step_fn = app64.make_step_fn(run_app)
+        for _ in range(start, stop):
+            step_fn(state, run_app.rand)
+
+    with precision_policy(precision):
+        old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            whole = app64.setup(cfg, device, pool)
+            run(whole, whole.state, 0, iters)
+            first = app64.setup(cfg, device, pool)
+            run(first, first.state, 0, iters // 2)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_resume64_") as tmp:
+                path = save_checkpoint(os.path.join(tmp, "ckpt.npz"), {"state": state_to_jax(first.state)})
+                second = app64.setup(cfg, device, pool)
+                resumed = state_from_jax(load_checkpoint(path)["state"], device, GanState)
+            run(second, resumed, iters // 2, iters)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    got, want = state_to_jax(resumed), state_to_jax(whole.state)
+    diff = max(float(np.abs(got[f][k] - want[f][k]).max()) for f in ("gen_params", "disc_params")
+               for k in want[f])
+    print(f"resume_equal_gan on {device} in {precision}: {iters // 2} + checkpoint + "
+          f"{iters - iters // 2} iterations vs {iters}: max param diff {diff:.3g}")
+    if diff != 0 or not int(got["step"]) == int(want["step"]) == iters:
+        raise AssertionError(f"resumed 64 px run differs from the uninterrupted one by {diff}")
+    return diff
+
+
+def _good64_images(gen: dict, noise: np.ndarray, device, batch: int = 100) -> torch.Tensor:
+    """G's flat images of ``noise`` in batches of ``batch`` (batch
+    statistics), under the precision policy in force."""
+    with torch.no_grad():
+        return torch.cat([good64.generator(gen, batch, None, noise=torch.from_numpy(noise[i:i + batch]).to(device))
+                          for i in range(0, len(noise), batch)])
+
+
+def phase_good64_checkpoint(device, out_dir: str) -> dict:
+    """The JAX run's 64 px checkpoint (``runs/good64_r5/params_latest.npz``,
+    iteration 13000) through the bridge, in fp32 and bf16: 1,000 images of
+    ``default_rng(0)`` noise in batches of 100, IS with the committed
+    ``scorer.npz`` (under the same precision) and FID against the pool's
+    first 1,000, gated against ``GOOD64_IS_REF``; the first 100 fp32 images
+    against the port's CPU G; then ``apps.generate --model good64``: a
+    grid, and batch 1024 served in fp32 and with ``--bf16``."""
+    device = torch.device(device)
+    params, scorer_path = GOOD64_RUN / "params_latest.npz", GOOD64_RUN / "scorer.npz"
+    for path in (params, scorer_path):
+        print(f"sha256 {path.relative_to(ROOT)} {_sha256(path)}")
+    blob = load_checkpoint(str(params))
+    if blob["iteration"] != 13000:
+        raise AssertionError(f"unexpected iteration {blob['iteration']}")
+    fresh = good64.init_params(64)
+    for field, prefix in (("gen_params", "Generator"), ("disc_params", "Discriminator")):
+        got = {k: v.shape for k, v in blob["params"][field].items()}
+        if got != {k: v.shape for k, v in fresh.items() if k.startswith(prefix)}:
+            raise AssertionError(f"{field} of the JAX checkpoint do not match the port's model")
+    gen_cpu = from_jax_params(blob["params"]["gen_params"])
+    gen = {k: v.to(device) for k, v in gen_cpu.items()}
+    noise = np.random.default_rng(0).standard_normal((1000, 128), dtype=np.float32)
+    scorer = TrainedScorer(3, 64, cache_path=str(scorer_path), device=device)
+    real = synthetic_images(4096, 3, 64, seed=0)[0][:1000]
+    dropout_mask.launches = philox_uniform.launches = 0
+    scores, images = {}, {}
+    for precision, gate in (("float32", GOOD64_IS_GATE_FP32), ("bfloat16", GOOD64_IS_GATE_BF16)):
+        with precision_policy(precision):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flat = _good64_images(gen, noise, device)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            fakes = ((flat.float() + 1.0) * (255.0 / 2)).to(torch.int32)
+            is_mean, is_std = scorer.inception_score(fakes)
+            fid = scorer.fid(real, fakes)
+        images[precision] = flat
+        scores[precision] = dict(inception_score=is_mean, inception_std=is_std, fid=fid, generate_s=gen_s)
+        print(f"good64_checkpoint {precision}: IS {is_mean:.5f} (std {is_std:.5f}), FID {fid:.5f}; "
+              f"IS_ref {GOOD64_IS_REF:.5f} (JAX, fp32, CPU), JAX run logged {GOOD64_LOGGED_IS} at iteration "
+              f"11999; 1,000 images generated in {gen_s:.3f} s")
+        if not (math.isfinite(is_mean) and math.isfinite(fid)):
+            raise AssertionError(f"non-finite scores in {precision}: {scores[precision]}")
+        if abs(is_mean - GOOD64_IS_REF) > gate:
+            raise AssertionError(f"IS {is_mean} in {precision} is not within {gate} of the JAX package's "
+                                 f"{GOOD64_IS_REF}")
+        if abs(is_mean - GOOD64_LOGGED_IS) > GOOD64_LAYOUT_GATE:
+            raise AssertionError(f"IS {is_mean} in {precision} is not within {GOOD64_LAYOUT_GATE} of the "
+                                 f"logged {GOOD64_LOGGED_IS}: layouts or loading are wrong")
+    with precision_policy("float32"):
+        cpu = _good64_images(gen_cpu, noise[:100], "cpu")
+    cpu_diff = float((images["float32"][:100].cpu() - cpu).abs().max())
+    print(f"good64_checkpoint: the first 100 fp32 images on {device} (TF32 convs) vs the CPU: max abs diff "
+          f"{cpu_diff:.3g} (bound {GOOD64_CPU_BOUND})")
+    if cpu_diff > GOOD64_CPU_BOUND:
+        raise AssertionError(f"fp32 G on {device} differs from the CPU's by {cpu_diff}")
+
+    prefix = str(Path(out_dir) / "generated_good64")
+    samples = generate.main(cfg=generate.Config(model="good64", ckpt=str(params), n=100, out_prefix=prefix),
+                            device=device)
+    if samples.shape != (100, 3 * 64 * 64) or not np.isfinite(samples).all() or np.abs(samples).max() > 1:
+        raise AssertionError("generate good64: samples are not finite [100, 12288] values in [-1, 1]")
+    if decode_png(prefix + ".png").shape != (640, 640, 3):
+        raise AssertionError("generate good64: the grid does not decode to 640x640 RGB")
+    serve = {("bf16" if bf16 else "fp32"): generate.main(
+        cfg=generate.Config(model="good64", ckpt=str(params), batch=1024, serve_iters=20, bf16=bf16),
+        device=device) for bf16 in (False, True)}
+    if (dropout_mask.launches, philox_uniform.launches) != (0, 0):
+        raise AssertionError("the 64 px G launched a kernel; it has no dropout and no dequantisation")
+    return dict(scores=scores, cpu_diff=cpu_diff, serve=serve)
+
+
+def _train64_line(name: str, out: dict) -> str:
+    return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations {out['timed']} "
+            f"(min {out['s_per_iter_min']:.5f}; "
+            f"each step synchronised), {out['seconds']:.2f} s for main (scorer fit {out['scorer_fit_s']} s), "
+            f"peak {out['peak_bytes'] / 2**30:.3f} GiB, mask launches {out['launches']} "
+            f"({out['per_iteration']} per iteration), evals {json.dumps(out['evals'])}, "
+            f"last {json.dumps(out['last'])}")
+
+
 def _train_line(name: str, out: dict) -> str:
     return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations 1-3, {out['seconds']:.2f} s for main "
             f"(scorer fit {out['scorer_fit_s']} s), peak {out['peak_bytes'] / 2**30:.3f} GiB, "
@@ -1016,6 +1366,11 @@ def main() -> int:
     draws = _phase("draws", phase_draws, device)
     _phase("cuda_vs_cpu", phase_cuda_vs_cpu, device)
     _phase("cuda_vs_cpu_bf16", phase_cuda_vs_cpu, device, precision="bfloat16")
+    gan_vs_cpu = {
+        "wgan-ct fp32": _phase("cuda_vs_cpu_gan", phase_cuda_vs_cpu_gan, device),
+        "wgan-ct bf16": _phase("cuda_vs_cpu_gan_bf16", phase_cuda_vs_cpu_gan, device, precision="bfloat16"),
+        "wgan-gp fp32": _phase("cuda_vs_cpu_gan_wgan_gp", phase_cuda_vs_cpu_gan, device, mode="wgan-gp"),
+    }
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg = app.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, INCEPTION_FREQUENCY=10,
                          inception_samples=5000, out_dir=f"{out_dir}/bf16")
@@ -1032,8 +1387,23 @@ def main() -> int:
                    for p in ("float32", "bfloat16")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_jax_") as out_dir:
         jax_ckpt = _phase("jax_checkpoint", phase_jax_checkpoint, device, out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_64_") as out_dir:
+        cfg64 = app64.Config(ITERS=TRAIN64_ITERS, save_every=5, sample_every=5, inception_every=10,
+                             out_dir=f"{out_dir}/bf16")
+        print(f"train64: cut for time: ITERS {TRAIN64_ITERS} (of 200000); IS on {cfg64.inception_samples} "
+              f"(the default); scorer fitted for 3 epochs on the card; BF16 {cfg64.BF16} (the default)")
+        train64 = _phase("train64", phase_train64, device, cfg64)
+        resume64 = _phase("train64_resume", phase_train64, device,
+                          dataclasses.replace(cfg64, ITERS=RESUME64_ITERS), start=TRAIN64_ITERS)
+        train64_fp32 = _phase("train64_fp32", phase_train64, device, dataclasses.replace(
+            cfg64, ITERS=4, BF16=False, save_every=2, sample_every=2, inception_every=0, out_dir=f"{out_dir}/fp32"))
+    resume64_diff = {p: _phase(f"resume_equal_gan_{p}", phase_resume_equal_gan, device, precision=p)
+                     for p in ("float32", "bfloat16")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_good64_") as out_dir:
+        good64_ckpt = _phase("good64_checkpoint", phase_good64_checkpoint, device, out_dir)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
-            "jax_checkpoint": jax_ckpt}
+            "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
+            "train64_fp32": train64_fp32}
     launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
                 "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
     print(f"train: {json.dumps(dataclasses.asdict(cfg) | {'out_dir': '<tmp>'})}")
@@ -1046,6 +1416,14 @@ def main() -> int:
     print(f"draws: {json.dumps(draws)}")
     print(f"capture: {json.dumps(capture)}")
     print(f"serve: {json.dumps(jax_ckpt['serve'])}")
+    print(f"cuda_vs_cpu_gan: max param diff {json.dumps(gan_vs_cpu)}")
+    print(f"train64: {json.dumps(dataclasses.asdict(cfg64) | {'out_dir': '<tmp>'})}")
+    print(_train64_line("train64 (bf16)", train64))
+    print(_train64_line("train64_resume (bf16)", resume64))
+    print(_train64_line("train64_fp32", train64_fp32))
+    print(f"resume_equal_gan: max param diff {json.dumps(resume64_diff)}")
+    print(f"good64_checkpoint: {json.dumps(good64_ckpt['scores'])}; cpu diff {good64_ckpt['cpu_diff']:.3g}")
+    print(f"serve good64: {json.dumps(good64_ckpt['serve'])}")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
         print(f"{name} launches on the main path: "
               + " + ".join(f"{k} {r[key]}" for k, r in runs.items()) + f" = {launches[name]}")

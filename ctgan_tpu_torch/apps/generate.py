@@ -1,24 +1,28 @@
 """Sample generation from a trained checkpoint, the serving path
 (counterpart of ``ctgan_tpu/apps/generate.py``), for ``--model
-cifar_resnet``.
+cifar_resnet`` (the flagship) and ``--model good64`` (the 64 px "Good"
+ResNet).
 
     python -m ctgan_tpu_torch.apps.generate --ckpt runs/ct_gan_cifar_resnet/ckpt/ckpt_1000.npz --n 100
+    python -m ctgan_tpu_torch.apps.generate --model good64 --ckpt runs/good64_r5/params_latest.npz
     python -m ctgan_tpu_torch.apps.generate --batch 1024 --serve_iters 50
 
 ``--ckpt`` takes a checkpoint of either package's train loop (or a
 ``params_latest.npz``, or a plain param dict).  ``--bf16`` runs G under the
 bf16 precision policy, else under fp32, as the JAX app's ``_apply_call``
 does (``ctgan_tpu/apps/generate.py:109-117``); samples leave the device as
-fp32 either way.  Samples are made in batches
-of ``--batch`` with random labels; G's batch norm uses each batch's
-statistics, so the batch size is part of the result.  The first 100 go to
+fp32 either way.  ``--dim`` is G's width; for ``good64`` the default 128
+means 64, as in the JAX app (``ctgan_tpu/apps/generate.py:92-96``).
+Samples are made in batches of ``--batch`` (with random labels for
+``cifar_resnet``); G's batch norm uses each batch's statistics, so the
+batch size is part of the result.  The first 100 go to
 ``<out_prefix>.png``; ``--save_npz`` also writes them all to
 ``<out_prefix>.npz``.  ``--serve_iters N`` times N batches with CUDA events
 (fresh weights when no ``--ckpt`` is given: the same compute) and prints
 one JSON line with the JAX app's keys.
 
-Not ported yet, and refused: the models ``mnist``, ``cifar``, ``good64``
-and ``lsun128`` (ROADMAP Queue 1 items 12b, 13 and 14) and
+Not ported yet, and refused: the models ``mnist``, ``cifar`` and
+``lsun128`` (ROADMAP Queue 1 items 12b, 13 and 14) and
 ``--aot``/``--aot_save`` (item 12b).
 """
 
@@ -33,7 +37,7 @@ import torch
 
 from ..bridge import from_jax_params
 from ..core import Randomness, precision_policy, split_params
-from ..models import resnet_cifar
+from ..models import good64, resnet_cifar
 from ..utils.checkpoint import load_checkpoint
 from .common import parse_config, save_sample_grid
 
@@ -59,15 +63,17 @@ class Config:
 _NOT_PORTED = {
     "mnist": "ROADMAP Queue 1 items 12b and 13 (unconditional GAN path)",
     "cifar": "ROADMAP Queue 1 items 12b and 13 (unconditional GAN path)",
-    "good64": "ROADMAP Queue 1 items 12b and 14 (64 px and 128 px)",
     "lsun128": "ROADMAP Queue 1 items 12b and 14 (64 px and 128 px)",
 }
+
+
+_SHAPES = {"cifar_resnet": (3, 32, 32), "good64": (3, 64, 64)}
 
 
 def _check_supported(cfg: Config) -> None:
     if cfg.model in _NOT_PORTED:
         raise NotImplementedError(f"--model {cfg.model} is not ported yet: {_NOT_PORTED[cfg.model]}")
-    if cfg.model != "cifar_resnet":
+    if cfg.model not in _SHAPES:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.aot or cfg.aot_save:
         raise NotImplementedError("--aot/--aot_save are not ported yet: ROADMAP Queue 1 item 12b "
@@ -87,26 +93,35 @@ def load_gen_params(ckpt_path: str) -> dict[str, np.ndarray]:
     return {k: v for k, v in blob.items() if hasattr(v, "shape")}
 
 
+def _good64_dim(cfg: Config) -> int:
+    return 64 if cfg.dim == 128 else cfg.dim
+
+
 def _gen_params(cfg: Config, device) -> dict[str, torch.Tensor]:
-    mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
     if cfg.ckpt:
         params = load_gen_params(cfg.ckpt)
+    elif cfg.model == "good64":
+        params = split_params(good64.init_params(_good64_dim(cfg), seed=cfg.seed), "Generator")[0]
     else:
+        mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
         params = split_params(resnet_cifar.init_params(mcfg, cfg.seed), "Generator")[0]
     return {k: v.to(device) for k, v in from_jax_params(params).items()}
 
 
 def _sampler(cfg: Config, params: dict, device):
-    """``call(n, seed) -> [n, 3072]`` images in [-1, 1] (bf16 under
-    ``--bf16``), labels drawn from ``seed``."""
+    """``call(n, seed) -> [n, C*H*W]`` images in [-1, 1] (bf16 under
+    ``--bf16``), noise (and labels) drawn from ``seed``."""
     mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
+
+    def body(n: int, rand: Randomness) -> torch.Tensor:
+        if cfg.model == "good64":
+            return good64.generator(params, n, rand, dim=_good64_dim(cfg))
+        return resnet_cifar.generator(params, n, rand.labels(n, mcfg.n_labels), mcfg, rand)
 
     @torch.no_grad()
     def call(n: int, seed: int) -> torch.Tensor:
-        rand = Randomness(seed, device)
-        labels = rand.labels(n, mcfg.n_labels)
         with precision_policy("bfloat16" if cfg.bf16 else "float32"):
-            return resnet_cifar.generator(params, n, labels, mcfg, rand)
+            return body(n, Randomness(seed, device))
 
     return call
 
@@ -155,7 +170,7 @@ def _serve_bench(cfg: Config, call, device) -> dict:
 
 
 def main(argv=None, cfg: Config | None = None, device="cuda"):
-    """Samples (``[n, 3072]`` NumPy, in [-1, 1]) or, with
+    """Samples (``[n, C*H*W]`` NumPy, in [-1, 1]) or, with
     ``--serve_iters``, the serving measurement."""
     cfg = cfg or parse_config(Config, argv)
     _check_supported(cfg)
@@ -171,7 +186,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
             for i in range(0, cfg.n, cfg.batch)]
     samples = torch.cat(outs)[: cfg.n].numpy()
     grid_path = f"{cfg.out_prefix}.png"
-    save_sample_grid(samples[: min(cfg.n, 100)], (3, 32, 32), grid_path)
+    save_sample_grid(samples[: min(cfg.n, 100)], _SHAPES[cfg.model], grid_path)
     print(f"wrote {grid_path} ({min(cfg.n, 100)} samples)")
     if cfg.save_npz:
         np.savez(f"{cfg.out_prefix}.npz", samples=samples)

@@ -6,10 +6,13 @@ weights.  Both keep the JAX names.  Every other array (biases, norm
 offsets and scales) is the same in both.  A round trip is exact.
 
 :func:`state_to_jax` and :func:`state_from_jax` carry a whole trainer state
-(params, Adam moments, Adam's ``t`` and the step) across the same boundary,
-as the plain dict with the field names of the JAX package's ``AcganState``
-(``ctgan_tpu/train/trainer_acgan.py:80-85``) that its train loop saves and
-restores with ``AcganState(**blob["state"])``.
+(params, optimiser state, the step) across the same boundary, as the plain
+dict of the fields of the JAX package's ``AcganState``
+(``ctgan_tpu/train/trainer_acgan.py:80-85``) or ``GANState``
+(``ctgan_tpu/train/trainer_gan.py:67-72``), which have the same fields: its
+train loop saves ``state._asdict()`` and restores ``type(state)(**blob["state"])``.
+An optimiser state is a dict of per-parameter moment dicts (Adam's ``m``
+and ``v``, RMSProp's ``ms`` and ``mom``) and scalars (Adam's ``t``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from .train.trainer_acgan import AcganState
+from .train.trainer_gan import GanState
 from .utils.checkpoint import device_get
 
 __all__ = ["from_jax_params", "to_jax_params", "state_to_jax", "state_from_jax"]
@@ -72,14 +76,14 @@ def to_jax_params(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 
 def _opt_to_jax(opt: dict) -> dict:
-    return {"m": _to_jax_layout(opt["m"]), "v": _to_jax_layout(opt["v"]),
-            "t": np.array(opt["t"], np.float32)}
+    return {k: _to_jax_layout(v) if isinstance(v, Mapping) else np.array(v, np.float32)
+            for k, v in opt.items()}
 
 
-def state_to_jax(state: AcganState) -> dict:
-    """The JAX package's ``AcganState`` fields as NumPy arrays in its
-    layouts: params and Adam ``m``/``v`` dicts, Adam ``t`` as a 0-d
-    float32 and ``step`` as a 0-d int32, and nothing else."""
+def state_to_jax(state: AcganState | GanState) -> dict:
+    """The JAX package's state fields as NumPy arrays in its layouts:
+    params and optimiser moment dicts, scalars such as Adam's ``t`` as 0-d
+    float32, ``step`` as a 0-d int32, and nothing else."""
     return device_get({
         "gen_params": _to_jax_layout(state.gen_params),
         "disc_params": _to_jax_layout(state.disc_params),
@@ -93,15 +97,16 @@ def _tensors(params: Mapping[str, np.ndarray], device, requires_grad: bool = Fal
     return {k: v.to(device).requires_grad_(requires_grad) for k, v in from_jax_params(params).items()}
 
 
-def state_from_jax(blob_state: Mapping, device) -> AcganState:
-    """An ``AcganState`` on ``device`` from the JAX-layout dict of
-    :func:`state_to_jax` or of a JAX checkpoint's ``state``.  Params
-    require grad, as ``AcganTrainer.init_state`` makes them."""
+def state_from_jax(blob_state: Mapping, device, cls: type = AcganState) -> AcganState | GanState:
+    """A ``cls`` (``AcganState`` or ``GanState``) on ``device`` from the
+    JAX-layout dict of :func:`state_to_jax` or of a JAX checkpoint's
+    ``state``.  Params require grad, as the trainers' ``init_state`` makes
+    them."""
     def opt(o):
-        return {"m": _tensors(o["m"], device), "v": _tensors(o["v"], device),
-                "t": float(np.asarray(o["t"]))}
+        return {k: _tensors(v, device) if isinstance(v, Mapping) else float(np.asarray(v))
+                for k, v in o.items()}
 
-    return AcganState(
+    return cls(
         _tensors(blob_state["gen_params"], device, True),
         _tensors(blob_state["disc_params"], device, True),
         opt(blob_state["gen_opt"]), opt(blob_state["disc_opt"]),

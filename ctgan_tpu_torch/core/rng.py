@@ -32,24 +32,26 @@ from ..ops.dropout import make_mask
 
 __all__ = ["Randomness", "SEED_SLOTS"]
 
-# Philox draws a provider can hand out: an iteration takes 38 (33 masks and
-# 5 dequantisation draws), a dev cost 7.
-SEED_SLOTS = 64
+# Philox draws a provider can hand out.  A flagship iteration takes 38 (33
+# masks and 5 dequantisation draws), its dev cost 7; a 64 px iteration 63
+# masks (3 in the G substep, 12 in each of 5 critic substeps).
+SEED_SLOTS = 128
 
 
 class Randomness:
     """Seeded draws for a run on ``device``, the same on every device.
 
-    * Latent noise, labels and GP alphas (small) come from a CPU
-      ``torch.Generator`` and go to ``device`` in one pinned, non-blocking
-      copy each.
+    * Latent noise, labels, GP alphas and per-image flips (small) come
+      from a CPU ``torch.Generator`` and go to ``device`` in one pinned,
+      non-blocking copy each.
     * Dequantisation noise (a uniform per pixel, the large draw) and dropout
       masks come from Philox keyed on a 32-bit seed of a host NumPy
       generator: the CUDA kernels on the card, their plain versions on the
       CPU, bit for bit the same.  The ``SEED_SLOTS`` seeds are drawn here,
       in order, into ``seed_values`` (host) and ``seeds`` (the table on
       ``device``); each Philox draw takes the next slot, and one past the
-      last raises.  ``cuda_dropout=False`` makes masks with the plain
+      last raises.  One array draw of the seeder gives what as many scalar
+      draws give, so slot k holds the same seed whatever ``SEED_SLOTS`` is.  ``cuda_dropout=False`` makes masks with the plain
       version on any device.
     """
 
@@ -59,7 +61,7 @@ class Randomness:
         self._gen = torch.Generator()
         self._gen.manual_seed(seed)
         seeder = np.random.default_rng(seed)
-        self.seed_values = np.array([seeder.integers(0, 1 << 32) for _ in range(SEED_SLOTS)], np.uint32)
+        self.seed_values = seeder.integers(0, 1 << 32, size=SEED_SLOTS).astype(np.uint32)
         self.seeds = self._to(seed_table(self.seed_values))
         self._slot = 0
         self._cuda_dropout = cuda_dropout
@@ -99,6 +101,11 @@ class Randomness:
     def gp_alpha(self, n: int) -> torch.Tensor:
         """One interpolation weight per example, ``[n, 1]``."""
         return self._to(torch.rand(n, 1, generator=self._gen))
+
+    def flip(self, n: int) -> torch.Tensor:
+        """Whether to flip each of ``n`` images left to right, each with
+        probability 1/2 (``ctgan_tpu/data/augment.py:22-30``)."""
+        return self._to(torch.rand(n, generator=self._gen) < 0.5)
 
     def dropout_mask(self, shape, keep_prob, dtype: torch.dtype, device) -> torch.Tensor:
         slot = self.take_slot()

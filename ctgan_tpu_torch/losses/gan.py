@@ -1,6 +1,7 @@
-"""WGAN-CT + ACGAN losses of the flagship (counterpart of
-``ctgan_tpu/losses/gan.py``).  Reductions run in fp32 whatever the
-activation dtype."""
+"""GAN losses (counterpart of ``ctgan_tpu/losses/gan.py``): WGAN with the
+consistency term and the gradient penalty, the ACGAN head, and the DCGAN
+(sigmoid cross-entropy) and LSGAN objectives of the unconditional trainer.
+Reductions run in fp32 whatever the activation dtype."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "wgan_losses", "consistency_term", "gradient_penalty", "acgan_loss", "acgan_accuracy",
+    "wgan_losses", "consistency_term", "gradient_penalty", "dcgan_losses", "lsgan_losses",
+    "acgan_loss", "acgan_accuracy",
 ]
 
 
@@ -47,6 +49,28 @@ def gradient_penalty(
     grads = grads.float()
     slopes = torch.sqrt(grads.square().sum(dim=tuple(range(1, grads.ndim))) + 1e-12)
     return (slopes - target).square().mean(), slopes
+
+
+def _sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``tf.nn.sigmoid_cross_entropy_with_logits``, elementwise, in fp32."""
+    logits, labels = logits.float(), labels.float()
+    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+
+
+def dcgan_losses(d_real: torch.Tensor, d_fake: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gen_cost, disc_cost) of the non-saturating sigmoid-CE GAN."""
+    gen_cost = _sigmoid_ce(d_fake, torch.ones_like(d_fake)).mean()
+    disc_cost = _sigmoid_ce(d_fake, torch.zeros_like(d_fake)).mean()
+    disc_cost = disc_cost + _sigmoid_ce(d_real, torch.ones_like(d_real)).mean()
+    return gen_cost, disc_cost / 2.0
+
+
+def lsgan_losses(d_real: torch.Tensor, d_fake: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gen_cost, disc_cost) of the least-squares GAN."""
+    d_real, d_fake = d_real.float(), d_fake.float()
+    gen_cost = (d_fake - 1.0).square().mean()
+    disc_cost = (d_fake.square().mean() + (d_real - 1.0).square().mean()) / 2.0
+    return gen_cost, disc_cost
 
 
 def acgan_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

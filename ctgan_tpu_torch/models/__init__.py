@@ -1,5 +1,6 @@
-"""The flagship model (counterpart of ``ctgan_tpu/models``)."""
+"""The flagship model and the 64 px "Good" ResNet (counterpart of
+``ctgan_tpu/models``)."""
 
-from . import blocks, common, resnet_cifar
+from . import blocks, common, good64, resnet_cifar
 
-__all__ = ["blocks", "common", "resnet_cifar"]
+__all__ = ["blocks", "common", "good64", "resnet_cifar"]

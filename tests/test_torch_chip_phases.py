@@ -198,6 +198,7 @@ ptxas info    : Used 26 registers, used 0 barriers
     assert chip_smoke.ptxas_registers(report) == {"_ZN1a19dropout_mask_kernelItEEvPT_lPKjijf": 24,
                                                   "_ZN1a21philox_uniform_kernelEPflPKjif": 26}
     shapes = chip_smoke.launch_shapes()
-    assert len(shapes) == 12 and shapes[-1] == ("philox_uniform", (640, 3072), torch.float32)
+    assert len(shapes) == 18 and shapes[-1] == ("philox_uniform", (640, 3072), torch.float32)
+    assert ("dropout_mask", (64, 256, 16, 16), torch.bfloat16) in shapes  # the 64 px critic's
     assert {chip_smoke._sass_key(name, dtype) for name, _, dtype in shapes} == {
         "dropout_mask float32", "dropout_mask bfloat16", "philox_uniform"}

@@ -158,7 +158,7 @@ def test_load_gen_params_reads_both_packages(tmp_path, jax_blob):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(model="mnist"), NotImplementedError, "ROADMAP"),
-    (dict(model="good64"), NotImplementedError, "ROADMAP"),
+    (dict(model="good64", aot="x.bin"), NotImplementedError, "ROADMAP"),  # good64 is served
     (dict(model="lsun128"), NotImplementedError, "ROADMAP"),
     (dict(model="cifar"), NotImplementedError, "ROADMAP"),
     (dict(aot="x.bin"), NotImplementedError, "ROADMAP"),

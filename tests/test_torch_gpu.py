@@ -20,8 +20,9 @@ from ctgan_tpu_torch.kernels import (
     philox_uniform_reference,
     seed_table,
 )
+from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
 from ctgan_tpu_torch.models import resnet_cifar
-from ctgan_tpu_torch.ops import dropout
+from ctgan_tpu_torch.ops import batchnorm, dropout
 from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
 from ctgan_tpu_torch.bridge import from_jax_params
 from ctgan_tpu_torch.core import split_params
@@ -187,3 +188,45 @@ def test_captured_draws_replay_the_eager_ones(cuda):
         assert all(torch.equal(c, e) for c, e in zip(captured, eager))
         replayed.append([c.clone() for c in captured])
     assert not any(torch.equal(a, b) for a, b in zip(*replayed))
+
+
+GOOD64_MASKS = [(64, 256, 16, 16), (64, 512, 8, 8), (64, 512, 4, 4)]
+
+
+@pytest.mark.parametrize("shape,kp", zip(GOOD64_MASKS, (0.8, 0.5, 0.5)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_equals_plain_version_at_the_64px_shapes(cuda, shape, kp, dtype):
+    table = seed_table(SEEDS, cuda)
+    for slot, value in enumerate(SEEDS):
+        got = dropout_mask(table, shape, kp, dtype, cuda, slot=slot)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dropout_mask_reference(value, shape, kp, dtype, cuda))
+
+
+def test_batchnorm_on_the_card_keeps_its_digits(cuda):
+    """Channels whose mean is large against their spread: the card's batch
+    norm within 1e-5 of float64, as the CPU's written-out two-pass form is
+    (PyTorch's CPU kernel is not; ``ops/norm.py``)."""
+    x = 100.0 + torch.randn(4, 8, 16, 16, dtype=torch.float64)
+    scale, offset = torch.rand(8, dtype=torch.float64) + 0.5, torch.randn(8, dtype=torch.float64)
+    want = batchnorm(x, scale, offset)
+    for device in (cuda, torch.device("cpu")):
+        got = batchnorm(x.float().to(device), scale.float().to(device), offset.float().to(device))
+        assert float((got.double().cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_64px_step_on_the_card_goes_through_the_kernel(cuda):
+    """One iteration of the 64 px app's step at dim 8 (5 critic
+    substeps, wgan-ct): 63 mask launches, no uniform draws; finite metrics,
+    in fp32 and bf16."""
+    import numpy as np
+
+    pool = (np.random.default_rng(0).integers(0, 256, (64, 12288), dtype=np.uint8), np.zeros(64, np.int64))
+    run = app64.setup(app64.Config(DIM=8, BATCH_SIZE=4, BF16=False), cuda, pool)
+    step = app64.make_step_fn(run)
+    for policy in ("float32", "bfloat16"):
+        before, uniforms = dropout_mask.launches, philox_uniform.launches
+        with precision_policy(policy):
+            _, metrics = step(run.state, run.rand)
+        assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
+        assert all(math.isfinite(float(v)) for v in metrics.values())

@@ -66,24 +66,25 @@ class JaxDraws:
     """Patches the JAX model and trainer so that, while traced, they draw
     from fixed sources and record what they drew, in trace order:
 
-    * dropout (``resnet_cifar.dropout``) takes the next of a fixed list of
-      keys and runs the JAX package's own dropout with it;
-    * latent noise (``resnet_cifar.noise_input``) is the next of a list of
-      seeded NumPy normals;
+    * dropout (``model.dropout``, the flagship's ``resnet_cifar`` unless
+      another model module is given) takes the next of a fixed list of keys
+      and runs the JAX package's own dropout with it;
+    * latent noise (``model.noise_input``) is the next of a list of seeded
+      NumPy normals;
     * ``rng.next_key`` (the trainer's "labels" and "gp" streams) returns the
       next fixed key of its stream.
 
     ``monkeypatch`` is pytest's fixture; the patches end with the test.
     """
 
-    def __init__(self, monkeypatch, seed: int = 0, *, fuse_meanpool: bool = True):
+    def __init__(self, monkeypatch, seed: int = 0, *, fuse_meanpool: bool = True, model=jax_resnet):
         self._keys = list(jax.random.split(jax.random.PRNGKey(seed), 256))
         self._np = np.random.default_rng(seed)
         self.dropouts: list[tuple] = []   # (key, nhwc shape, kp)
         self.noises: list[np.ndarray] = []
         self.stream_keys: dict[str, list] = {"labels": [], "gp": []}
-        monkeypatch.setattr(jax_resnet, "dropout", self._dropout)
-        monkeypatch.setattr(jax_resnet, "noise_input", self._noise_input)
+        monkeypatch.setattr(model, "dropout", self._dropout)
+        monkeypatch.setattr(model, "noise_input", self._noise_input)
         monkeypatch.setattr(jax_rng, "next_key", self._next_key)
         monkeypatch.setattr(jax_blocks, "FUSE_MEANPOOL_CONV", fuse_meanpool)
 
