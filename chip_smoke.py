@@ -9,8 +9,9 @@ Phases, each printed with its seconds:
 2. build: ``nvcc`` builds every CUDA kernel (ptxas report on stderr; the
    registers of each kernel printed);
 3. kernel: the dropout-mask kernel against its plain PyTorch version at the
-   flagship's three training mask shapes and its two dev-cost shapes and the
-   64 px critic's three shapes, fp32
+   flagship's three training mask shapes and its two dev-cost shapes, the
+   64 px critic's three shapes, the MNIST and CIFAR-10 conv critics' three
+   each and two ragged MNIST counts, fp32
    and bf16, keep prob 0.8 and 0.5: bit for bit, keep fraction,
    determinism; a mask read from slot k of a seed table equals the mask of
    the int seed that slot holds; the Philox-uniform kernel against its
@@ -78,7 +79,21 @@ Phases, each printed with its seconds:
     fp32 and bf16, IS with the committed ``scorer.npz`` gated against the
     JAX package's (``GOOD64_IS_REF``) and, loosely, the run's logged IS;
     fp32 G on the card against the CPU on 100 images; ``apps.generate
-    --model good64`` at batch 1024, fp32 and ``--bf16``.
+    --model good64`` at batch 1024, fp32 and ``--bf16``;
+13. cuda_vs_cpu_dcgan (after cuda_vs_cpu_gan): the MNIST conv GAN at full
+    width (dim 64, batch 50, wgan-CT) on the card and the CPU, substep by
+    substep, fp32 (TF32 off) and bf16, with cuda_vs_cpu_gan's bounds;
+14. dcgan_ref (after it): the port's MNIST (dim 64) and CIFAR-10 (dim 128)
+    G and D at seed 0 in fp32, TF32 off, against the JAX package's outputs
+    pinned in ``DCGAN_REF`` (100 images, logits at keep 1), within 1e-4;
+15. train_mnist / train_cifar (after train_norm_d): each app's ``main`` at
+    its defaults (bf16, full width) for 10 iterations (test_fn every 5,
+    CIFAR-10's IS at iteration 9 on 1,000 through the flagship phase's
+    fitted scorer), resumed to 12, and 4 iterations in fp32: files, grids,
+    dev costs, ``slope_real``, mask launches per call (63 per iteration,
+    120 / 123 per test_fn), s/iter synchronised each step, peak memory;
+16. serve_dcgan: ``apps.generate --model mnist|cifar`` on those runs'
+    ``params_latest.npz``: a grid, batch 1024 in fp32 and ``--bf16``.
 
 The last lines are the card, the kernel record and ``{"ok": true, ...}``.
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -96,6 +111,7 @@ import json
 import math
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -108,7 +124,9 @@ import numpy as np
 import torch
 
 from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
+from ctgan_tpu_torch.apps import ct_gan_cifar as cifar_app
 from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
+from ctgan_tpu_torch.apps import ct_gan_mnist as mnist_app
 from ctgan_tpu_torch.apps import generate
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
@@ -125,10 +143,10 @@ from ctgan_tpu_torch.kernels import (
 from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10, seed_table
 from ctgan_tpu_torch.kernels.build import build_libraries, library_path
 from ctgan_tpu_torch.kernels.sass import disassemble, kernel_counts, op_bound_ms
-from ctgan_tpu_torch.models import good64, resnet_cifar
+from ctgan_tpu_torch.models import dcgan, good64, resnet_cifar
 from ctgan_tpu_torch.train import AcganConfig, AcganTrainer, GanConfig, GanState, GanTrainer
 from ctgan_tpu_torch.train.optim import adam_mismatches
-from ctgan_tpu_torch.utils import load_checkpoint, save_checkpoint
+from ctgan_tpu_torch.utils import load_checkpoint, make_grid, save_checkpoint
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 TRAIN_ITERS = 10
@@ -220,6 +238,24 @@ def good64_mask_shapes(dim: int = 64, batch: int = 64):
     return [(batch, 4 * dim, 16, 16), (batch, 8 * dim, 8, 8), (batch, 8 * dim, 4, 4)]
 
 
+def dcgan_mask_shapes(cfg) -> list[tuple]:
+    """NCHW shapes of the MNIST or CIFAR-10 conv critic's masks (keep
+    0.5), after its three stride-2 convs (28 -> 14 -> 7 -> 4 px, or 32 ->
+    16 -> 8 -> 4): 21 launches each per 1G+5D wgan-CT iteration."""
+    size = 28 if isinstance(cfg, mnist_app.Config) else 32
+    shapes = []
+    for mult in (1, 2, 4):
+        size = -(-size // 2)
+        shapes.append((cfg.BATCH_SIZE, mult * cfg.DIM, size, size))
+    return shapes
+
+
+# MNIST masks whose counts are no multiple of the kernel's 256-element warp span, so its tail
+# path writes the rest: at batch 49, 307,328 elements (128 over: 32 whole 4-element groups), and at
+# batch 49 and DIM 63, 302,526 (190 over: 47 groups and 2 elements of a 48th)
+RAGGED_MASK_SHAPES = [(49, 128, 7, 7), (49, 126, 7, 7)]
+
+
 def _time_ms(fn, n: int) -> float:
     """Device time per call: the calls queue behind a sleeping kernel, so
     the events measure the device's work, not the host's launch rate."""
@@ -251,7 +287,7 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _check_masks(device, seed: int) -> float:
     max_err = 0.0
-    for shape in flagship_mask_shapes() + dev_cost_mask_shapes() + good64_mask_shapes():
+    for shape in all_mask_shapes() + RAGGED_MASK_SHAPES:
         n = math.prod(shape)
         for dtype in (torch.float32, torch.bfloat16):
             for kp in (0.8, 0.5):
@@ -311,12 +347,18 @@ def _check_uniforms(device, seed: int) -> float:
     return max_err
 
 
+def all_mask_shapes() -> list[tuple]:
+    """The mask shapes of every path: the flagship's five, the 64 px
+    critic's three, MNIST's and CIFAR-10's conv critics' three each."""
+    return (flagship_mask_shapes() + dev_cost_mask_shapes() + good64_mask_shapes()
+            + dcgan_mask_shapes(mnist_app.Config()) + dcgan_mask_shapes(cifar_app.Config()))
+
+
 def launch_shapes() -> list[tuple[str, tuple, torch.dtype]]:
-    """Every (kernel, shape, dtype) the main paths launch: the flagship's
-    five mask shapes and the 64 px critic's three in fp32 and bf16, the two
-    dequantisation shapes."""
-    out = [("dropout_mask", shape, dtype)
-           for shape in flagship_mask_shapes() + dev_cost_mask_shapes() + good64_mask_shapes()
+    """Every (kernel, shape, dtype) the main paths launch: the mask shapes
+    (``all_mask_shapes``) in fp32 and bf16, the two dequantisation
+    shapes."""
+    out = [("dropout_mask", shape, dtype) for shape in all_mask_shapes()
            for dtype in (torch.float32, torch.bfloat16)]
     return out + [("philox_uniform", shape, torch.float32) for shape in dequant_shapes()]
 
@@ -334,7 +376,9 @@ def phase_kernel(device, clock_hz: float) -> list[dict]:
     mask_err = _check_masks(device, seed)
     uniform_err = _check_uniforms(device, seed)
     n_slots = _check_table_slots(device, seed)
-    print(f"kernel: bit for bit at {len(launch_shapes())} shapes; {n_slots} table slots equal their int seeds")
+    print(f"kernel: bit for bit at {len(launch_shapes())} shapes and the ragged masks "
+          f"{[(list(r), math.prod(r) % 256) for r in RAGGED_MASK_SHAPES]} (shape, elements past the last "
+          f"256-element span) in both dtypes; {n_slots} table slots equal their int seeds")
 
     counts = kernel_counts(disassemble(library_path("dropout_mask")))
     for key, c in counts.items():
@@ -767,17 +811,18 @@ def _good64_trainer(dim: int, gcfg: GanConfig) -> GanTrainer:
     )
 
 
-def _lockstep_gan(device, trainer: GanTrainer, params, *, iters, seed, check) -> None:
-    """``_lockstep`` for the unconditional trainer: reals in [-1, 1] of a
-    seeded NumPy draw, each substep on the CPU and on ``device`` from the
-    same state with the same draws."""
+def _lockstep_gan(device, trainer: GanTrainer, params, *, iters, seed, check, real_dim: int = 3 * 64 * 64,
+                  low: float = -1.0) -> None:
+    """``_lockstep`` for the unconditional trainer: ``[B, real_dim]`` reals
+    in ``[low, 1]`` of a seeded NumPy draw, each substep on the CPU and on
+    ``device`` from the same state with the same draws."""
     gen, disc, _ = split_params(from_jax_params(params), "Generator", "Discriminator")
     state = trainer.init_state(gen, disc)
     data = np.random.default_rng(seed)
     rand_dev, rand_cpu = Randomness(seed, device), Randomness(seed, "cpu")
     n_critic, batch = trainer.cfg.critic_iters, trainer.cfg.batch_size
     for _ in range(iters):
-        real = torch.from_numpy(data.uniform(-1, 1, (n_critic, batch, 3 * 64 * 64)).astype(np.float32))
+        real = torch.from_numpy(data.uniform(low, 1, (n_critic, batch, real_dim)).astype(np.float32))
         before, dev = _copy_state(state, "cpu"), _copy_state(state, device)
         got = {"gen_cost": trainer.gen_substep(dev, rand_dev)}
         want = {"gen_cost": trainer.gen_substep(state, rand_cpu)}
@@ -812,6 +857,27 @@ def phase_cuda_vs_cpu_gan(device, *, precision="float32", mode="wgan-ct", dim=16
     with precision_policy(precision), _no_tf32():
         _lockstep_gan(device, trainer, good64.init_params(dim, mode, seed), iters=iters, seed=seed, check=check)
     return _lockstep_report(f"good64 {mode}: ", device, precision, iters, report, failures)
+
+
+def phase_cuda_vs_cpu_dcgan(device, *, precision="float32", dim=64, batch=50, n_critic=2, iters=2,
+                            seed=0) -> float:
+    """``phase_cuda_vs_cpu_gan`` for the MNIST conv GAN at full width (dim
+    64, batch 50, wgan-CT: no batch norm in G or D, dropout at keep 0.5
+    after each of D's three convs), reals in [0, 1], with its bounds."""
+    mode = "wgan-CT"
+    gcfg = GanConfig(mode=mode, batch_size=batch, critic_iters=n_critic, iters=100)
+    trainer = GanTrainer(
+        lambda p, n, rand, noise=None: dcgan.mnist_generator(p, n, rand, dim=dim, mode=mode, noise=noise),
+        lambda p, x, rand: dcgan.mnist_discriminator(p, x, rand, dim=dim, mode=mode),
+        gcfg,
+    )
+    bf16 = precision == "bfloat16"
+    check, report, failures = _substep_checker(device, bf16=bf16, lr=gcfg.lr, beta1=gcfg.beta1,
+                                               zero_grad=dcgan.zero_grad_params("mnist", mode), elementwise=False)
+    with precision_policy(precision), _no_tf32():
+        _lockstep_gan(device, trainer, dcgan.init_params("mnist", dim, mode, seed), iters=iters, seed=seed,
+                      check=check, real_dim=784, low=0.0)
+    return _lockstep_report(f"mnist {mode} dim {dim} batch {batch}: ", device, precision, iters, report, failures)
 
 
 class _Tee(io.TextIOBase):
@@ -1116,24 +1182,38 @@ def phase_jax_checkpoint(device, out_dir: str) -> dict:
                 dev_cost_spread=spread)
 
 
-def good64_masks_per_iteration(cfg: app64.Config) -> int:
-    """The 64 px app's mask launches per iteration: 3 in the G substep and,
-    per critic substep, 3 in each D pass: real, fake, and for wgan-ct the
+def _d_passes(mode: str) -> int:
+    """D passes of a critic substep: real, fake, and for the CT modes the
     CT's second real pass, with a GP the interpolates."""
-    passes = {"wgan-ct": 4, "wgan-CT": 4, "wgan-gp": 3}.get(cfg.MODE, 2)
-    return 3 + (1 if cfg.MODE == "dcgan" else cfg.CRITIC_ITERS) * 3 * passes
+    return {"wgan-ct": 4, "wgan-CT": 4, "wgan-gp": 3}.get(mode, 2)
 
 
-def _run_main64(cfg: app64.Config, device) -> tuple:
-    """``app64.main`` with the mask kernel's launches counted from 0, each
-    step timed on the host clock between two synchronisations, and stdout
-    kept.  Returns (state, records, mask launches, uniform launches, step
-    seconds per iteration, stdout, seconds)."""
-    make_step_fn, step_s = app64.make_step_fn, []
+def gan_masks_per_iteration(cfg) -> int:
+    """An unconditional app's mask launches per iteration (the 64 px "Good"
+    ResNet's critic and the MNIST and CIFAR-10 conv critics drop out 3
+    times per pass): 3 in the G substep and 3 in each D pass of each critic
+    substep."""
+    return 3 + (1 if cfg.MODE == "dcgan" else cfg.CRITIC_ITERS) * 3 * _d_passes(cfg.MODE)
+
+
+def dcgan_masks_per_test(cfg) -> int:
+    """Mask launches of one ``test_fn`` of the MNIST or CIFAR-10 app: the
+    dev cost's 10 batches of ``BATCH_SIZE``, 3 in each D pass, and for
+    CIFAR-10 the slope monitor's one D pass."""
+    return 10 * 3 * _d_passes(cfg.MODE) + (3 if isinstance(cfg, cifar_app.Config) else 0)
+
+
+def _run_gan_main(module, cfg, device) -> tuple:
+    """``module.main`` (an unconditional app) with the kernels' launches
+    counted from 0, each step timed on the host clock between two
+    synchronisations, and stdout kept.  Returns (state, records, mask
+    launches, uniform launches, step seconds per iteration, stdout,
+    seconds)."""
+    make_step_fn, step_s = module.make_step_fn, []
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
 
-    def timed(app64_run):
-        step = make_step_fn(app64_run)
+    def timed(*args):
+        step = make_step_fn(*args)
 
         def step_fn(state, rand):
             sync()
@@ -1148,31 +1228,31 @@ def _run_main64(cfg: app64.Config, device) -> tuple:
     dropout_mask.launches = philox_uniform.launches = 0
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
-    app64.make_step_fn = timed
+    module.make_step_fn = timed
     try:
         with contextlib.redirect_stdout(tee):
-            state, records = app64.main(cfg=cfg, device=device)
+            state, records = module.main(cfg=cfg, device=device)
     finally:
-        app64.make_step_fn = make_step_fn
+        module.make_step_fn = make_step_fn
     return (state, records, dropout_mask.launches, philox_uniform.launches, step_s, tee.buf.getvalue(),
             time.perf_counter() - t0)
 
 
 def phase_train64(device, cfg: app64.Config, start: int = 0) -> dict:
     """One ``app64.main`` in ``cfg.out_dir`` (fresh, or resuming at
-    ``start``): launches (``good64_masks_per_iteration`` each, none of the
+    ``start``): launches (``gan_masks_per_iteration`` each, none of the
     uniform kernel: no dequantisation on this path), files, grids, finite
     metrics, IS/FID in range, G's samples; seconds per step over iterations
     1-9 (synchronised) and peak device memory."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state, records, launches, uniforms, step_s, stdout, seconds = _run_main64(cfg, device)
+    state, records, launches, uniforms, step_s, stdout, seconds = _run_gan_main(app64, cfg, device)
     if start:
         want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
         if want not in stdout:
             raise AssertionError(f"no line {want!r} in the resumed run's output")
-    expected = (cfg.ITERS - start) * good64_masks_per_iteration(cfg) if device.type == "cuda" else 0
+    expected = (cfg.ITERS - start) * gan_masks_per_iteration(cfg) if device.type == "cuda" else 0
     if (launches, uniforms) != (expected, 0):
         raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times, "
                              f"expected {expected}, 0")
@@ -1337,6 +1417,181 @@ def phase_good64_checkpoint(device, out_dir: str) -> dict:
     return dict(scores=scores, cpu_diff=cpu_diff, serve=serve)
 
 
+def _dcgan_chw(cfg) -> tuple[int, int, int]:
+    return (1, 28, 28) if isinstance(cfg, mnist_app.Config) else (3, 32, 32)
+
+
+def _grid_shape(n: int, chw) -> tuple:
+    """The pixels' shape of ``save_sample_grid``'s grid of ``n`` images."""
+    return make_grid(np.zeros((n, *chw) if chw[0] == 3 else (n, *chw[1:]))).shape
+
+
+def phase_train_dcgan(device, module, cfg, start: int = 0) -> dict:
+    """One ``main`` of the MNIST or CIFAR-10 app (``module``) in
+    ``cfg.out_dir`` (fresh, or resuming at ``start``): launches
+    (``gan_masks_per_iteration`` per iteration and ``dcgan_masks_per_test``
+    per ``test_fn``; no dequantisation draws), files (checkpoints, logs,
+    grids, CIFAR-10's ``disc_params.npz``), the grids decoded, finite
+    metrics and dev costs, CIFAR-10's ``slope_real`` and IS, G's samples
+    in its range; seconds per step (synchronised) and peak device memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state, records, launches, uniforms, step_s, stdout, seconds = _run_gan_main(module, cfg, device)
+    if start:
+        want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
+        if want not in stdout:
+            raise AssertionError(f"no line {want!r} in the resumed run's output")
+    is_cifar = isinstance(cfg, cifar_app.Config)
+    tests = [it for it in range(start, cfg.ITERS) if it % cfg.sample_every == cfg.sample_every - 1]
+    expected = 0
+    if device.type == "cuda":
+        expected = (cfg.ITERS - start) * gan_masks_per_iteration(cfg) + len(tests) * dcgan_masks_per_test(cfg)
+    if (launches, uniforms) != (expected, 0):
+        raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times, "
+                             f"expected {expected}, 0")
+    if state.step != cfg.ITERS or records[-1]["iteration"] != cfg.ITERS - 1:
+        raise AssertionError(f"run ended at step {state.step}, records {records[-1]}")
+    out = Path(cfg.out_dir)
+    saves = [n for n in range(start + 1, cfg.ITERS + 1) if n % cfg.save_every == 0]
+    files = [f"ckpt/ckpt_{n}.npz" for n in saves] + ["log.pkl", "log.ndjson"]
+    files += (["params_latest.npz"] if saves else []) + [f"samples_{it}.png" for it in tests]
+    files += ["disc_params.npz"] if is_cifar and tests else []
+    missing = [f for f in files if not (out / f).is_file()]
+    if missing:
+        raise AssertionError(f"missing in out_dir: {missing}")
+    chw = _dcgan_chw(cfg)
+    for it in tests:
+        if decode_png(out / f"samples_{it}.png").shape != _grid_shape(mnist_app.N_GRID, chw):
+            raise AssertionError(f"samples_{it}.png is not a grid of {mnist_app.N_GRID} images of {chw}")
+    last = records[-1]
+    keys = ("wgan", "ct", "gp", "disc_cost", "gen_cost") if cfg.MODE == "wgan-CT" else ("disc_cost", "gen_cost")
+    tested = [r for r in records if r["iteration"] in tests]
+    test_keys = ("dev disc cost", "slope_real") if is_cifar else ("dev disc cost",)
+    for r, ks in [(last, keys)] + [(r, test_keys) for r in tested]:
+        for k in ks:
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"iteration {r['iteration']}: {k} = {r[k]}")
+    evals = [{k: r[k] for k in ("iteration", "inception score")} for r in records if "inception score" in r]
+    if any(not 1.0 <= r["inception score"] <= 10.0 for r in evals):
+        raise AssertionError(f"IS out of range: {evals}")
+    gen = dcgan.cifar_generator if is_cifar else dcgan.mnist_generator
+    kw = {} if is_cifar else {"mode": cfg.MODE}
+    with torch.no_grad():
+        samples = gen(state.gen_params, 64, Randomness(1, device), dim=cfg.DIM, **kw)
+    want_dtype = torch.bfloat16 if cfg.BF16 and device.type == "cuda" else torch.float32
+    if samples.dtype != want_dtype or samples.shape != (64, math.prod(chw)):
+        raise AssertionError(f"generator samples are {samples.dtype} {tuple(samples.shape)}")
+    low = -1.0 if is_cifar else 0.0
+    if not bool(torch.isfinite(samples).all()) or samples.min() < low or samples.max() > 1:
+        raise AssertionError(f"generator samples are not finite values in [{low}, 1]")
+    fit = re.search(r"IS scorer: fitted in ([0-9.]+) s", stdout)
+    first = start + (start == 0)  # a fresh run's iteration 0 warms cuDNN up
+    return dict(launches=launches, uniform_launches=uniforms, per_iteration=gan_masks_per_iteration(cfg),
+                per_test=dcgan_masks_per_test(cfg), timed=f"{first}-{cfg.ITERS - 1}",
+                s_per_iter=float(np.mean(step_s[first - start:])),
+                s_per_iter_min=float(min(step_s[first - start:])),
+                peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+                seconds=seconds, evals=evals, last=last, scorer_fit_s=float(fit.group(1)) if fit else None,
+                tests={r["iteration"]: {k: r[k] for k in test_keys} for r in tested})
+
+
+# The JAX package's MNIST (dim 64) and CIFAR-10 (dim 128) G at seed 0 (JAX's init_context(0), as each
+# app builds it) on np.random.default_rng(0).standard_normal((100, 128), dtype=float32), fp32 on the
+# CPU, and its wgan-CT D's logits at keep probability 1 on those images: the mean and standard
+# deviation of G's [100, C*H*W] output and 8 elements at np.linspace(0, size - 1, 8) of it, the
+# logits' mean, standard deviation and first 8.  Recompute with
+#   python -m pytest tests/test_torch_chip_dcgan.py -k pinned
+DCGAN_REF = {
+    "mnist": {"g_mean": 0.49694916125044836, "g_std": 0.04057303857610614,
+              "g_at": [0.49881061911582947, 0.4659322500228882, 0.494426965713501, 0.4745745360851288,
+                       0.4982982575893402, 0.5139520764350891, 0.49585551023483276, 0.5037436485290527],
+              "d_mean": 0.08463087532669306, "d_std": 0.014772644554788507,
+              "d_first": [0.11398418247699738, 0.09097158908843994, 0.10741780698299408, 0.09152869135141373,
+                          0.12568166851997375, 0.06450556218624115, 0.07299278676509857, 0.07715606689453125]},
+    "cifar": {"g_mean": 0.12647169874645414, "g_std": 0.6956567851474413,
+              "g_at": [0.11182042956352234, -0.9930117726325989, 0.06737671792507172, -0.5290616154670715,
+                       0.9831655621528625, 0.9142425656318665, 0.9843605160713196, -0.02610231749713421],
+              "d_mean": 0.3234027359634638, "d_std": 0.23792586357823006,
+              "d_first": [-0.12092852592468262, 0.45428597927093506, 0.4194769263267517, 0.4593014121055603,
+                          0.3839319944381714, 0.1653478592634201, 0.24291810393333435, 0.3288569152355194]},
+}
+DCGAN_REF_DIMS = {"mnist": 64, "cifar": 128}
+DCGAN_REF_BOUND = 1e-4  # absolute, on every pinned number
+
+
+def dcgan_ref_summary(images: np.ndarray, logits: np.ndarray) -> dict:
+    """The numbers ``DCGAN_REF`` pins, of G's flat images and D's logits."""
+    g = np.asarray(images, np.float64).reshape(-1)
+    d = np.asarray(logits, np.float64)
+    idx = np.linspace(0, g.size - 1, 8).astype(int)
+    return {"g_mean": float(g.mean()), "g_std": float(g.std()), "g_at": [float(v) for v in g[idx]],
+            "d_mean": float(d.mean()), "d_std": float(d.std()), "d_first": [float(v) for v in d[:8]]}
+
+
+def dcgan_ref_outputs(arch: str, device) -> dict:
+    """``dcgan_ref_summary`` of the port's G and D at seed 0, as
+    ``DCGAN_REF`` was made, on ``device``, under the precision in force."""
+    dim = DCGAN_REF_DIMS[arch]
+    p = {k: v.to(device) for k, v in from_jax_params(dcgan.init_params(arch, dim, "wgan-CT", 0)).items()}
+    gen, disc = ((dcgan.mnist_generator, dcgan.mnist_discriminator) if arch == "mnist"
+                 else (dcgan.cifar_generator, dcgan.cifar_discriminator))
+    noise = torch.from_numpy(np.random.default_rng(0).standard_normal((100, 128), dtype=np.float32)).to(device)
+    with torch.no_grad():
+        images = gen(p, 100, None, dim=dim, noise=noise)
+        logits, _ = disc(p, images, None, dim=dim, keep_prob=1.0)
+    return dcgan_ref_summary(images.float().cpu().numpy(), logits.float().cpu().numpy())
+
+
+def _largest_gap(got: dict, want: dict) -> float:
+    return max(abs(a - b) for k in want for a, b in zip(np.atleast_1d(got[k]), np.atleast_1d(want[k]), strict=True))
+
+
+def phase_dcgan_ref(device) -> dict:
+    """The full-width gate that stands in for a JAX checkpoint: the port's
+    MNIST and CIFAR-10 G and D at seed 0 on ``device``, in fp32 with TF32
+    off, against the JAX package's outputs pinned in ``DCGAN_REF``, every
+    number within ``DCGAN_REF_BOUND``.  No kernel is launched (keep 1)."""
+    before = dropout_mask.launches
+    gaps = {}
+    with precision_policy("float32"), _no_tf32():
+        for arch in DCGAN_REF:
+            gaps[arch] = _largest_gap(dcgan_ref_outputs(arch, device), DCGAN_REF[arch])
+            print(f"dcgan_ref {arch} dim {DCGAN_REF_DIMS[arch]}: the port on {device} (fp32, TF32 off) against the "
+                  f"JAX package's pinned G and D outputs: largest gap {gaps[arch]:.3g} (bound {DCGAN_REF_BOUND})")
+    if dropout_mask.launches != before:
+        raise AssertionError("dcgan_ref launched a mask at keep probability 1")
+    bad = {k: v for k, v in gaps.items() if not v <= DCGAN_REF_BOUND}
+    if bad:
+        raise AssertionError(f"dcgan_ref: the port's outputs differ from the JAX package's by {bad}")
+    return gaps
+
+
+def phase_serve_dcgan(device, ckpts: dict, out_dir: str) -> dict:
+    """``apps.generate --model mnist|cifar`` on the train phases'
+    ``params_latest.npz``: a grid of 100 and batch 1024 served in fp32 and
+    with ``--bf16`` (images/s); G launches no kernel."""
+    before = dropout_mask.launches, philox_uniform.launches
+    serve = {}
+    for model, ckpt in ckpts.items():
+        prefix = str(Path(out_dir) / f"generated_{model}")
+        samples = generate.main(cfg=generate.Config(model=model, ckpt=ckpt, n=100, out_prefix=prefix),
+                                device=device)
+        chw = (1, 28, 28) if model == "mnist" else (3, 32, 32)
+        low = 0.0 if model == "mnist" else -1.0
+        if samples.shape != (100, math.prod(chw)) or not np.isfinite(samples).all() or not (
+                low <= samples.min() and samples.max() <= 1):
+            raise AssertionError(f"generate {model}: samples are not finite [100, {math.prod(chw)}] in [{low}, 1]")
+        if decode_png(prefix + ".png").shape != _grid_shape(100, chw):
+            raise AssertionError(f"generate {model}: the grid is not 10x10 images of {chw}")
+        for bf16 in (False, True):
+            serve[f"{model} {'bf16' if bf16 else 'fp32'}"] = generate.main(
+                cfg=generate.Config(model=model, ckpt=ckpt, batch=1024, serve_iters=20, bf16=bf16), device=device)
+    if (dropout_mask.launches, philox_uniform.launches) != before:
+        raise AssertionError("generate launched a kernel; G has no dropout")
+    return serve
+
+
 def _train64_line(name: str, out: dict) -> str:
     return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations {out['timed']} "
             f"(min {out['s_per_iter_min']:.5f}; "
@@ -1351,6 +1606,42 @@ def _train_line(name: str, out: dict) -> str:
             f"(scorer fit {out['scorer_fit_s']} s), peak {out['peak_bytes'] / 2**30:.3f} GiB, "
             f"launches {out['launches']} + {out['uniform_launches']}, evals {json.dumps(out['evals'])}, "
             f"last {json.dumps(out['last'])}")
+
+
+def _dcgan_line(name: str, out: dict) -> str:
+    peak = "not measured" if out["peak_bytes"] is None else f"{out['peak_bytes'] / 2**30:.3f} GiB"
+    return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations {out['timed']} "
+            f"(min {out['s_per_iter_min']:.5f}; each step synchronised), {out['seconds']:.2f} s for main, "
+            f"peak {peak}, mask launches "
+            f"{out['launches']} ({out['per_iteration']} per iteration, {out['per_test']} per test_fn), "
+            f"tests {json.dumps(out['tests'])}, evals {json.dumps(out['evals'])}, last {json.dumps(out['last'])}")
+
+
+def run_dcgan_apps(device, out_dir: str, scorer: Path | None = None) -> dict:
+    """The MNIST and CIFAR-10 apps at their defaults (bf16 on the card),
+    cut in depth: 10 iterations (test_fn every 5, checkpoints every 5; for
+    CIFAR-10 the IS at iteration 9 on its default 1,000 samples, through
+    the flagship train phase's fitted ``scorer`` when given), ``main`` again
+    to 12 (a resume at 10), and 4 iterations in fp32; then ``generate`` on
+    each bf16 run's ``params_latest.npz``."""
+    runs, ckpts = {}, {}
+    for name, module in (("mnist", mnist_app), ("cifar", cifar_app)):
+        extra = {"inception_every": 10} if module is cifar_app else {}
+        cfg = module.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, out_dir=f"{out_dir}/{name}", **extra)
+        if module is cifar_app and scorer is not None and scorer.is_file():
+            os.makedirs(cfg.out_dir, exist_ok=True)
+            shutil.copy(scorer, Path(cfg.out_dir) / "scorer.npz")
+        print(f"train_{name}: cut for time: ITERS {TRAIN_ITERS} (of {module.Config().ITERS}); DIM {cfg.DIM}, "
+              f"BATCH_SIZE {cfg.BATCH_SIZE}, MODE {cfg.MODE}, BF16 {cfg.BF16} (the defaults)")
+        runs[f"train_{name}"] = _phase(f"train_{name}", phase_train_dcgan, device, module, cfg)
+        runs[f"train_{name}_resume"] = _phase(f"train_{name}_resume", phase_train_dcgan, device, module,
+                                              dataclasses.replace(cfg, ITERS=RESUME_ITERS), start=TRAIN_ITERS)
+        fp32 = dataclasses.replace(cfg, ITERS=4, BF16=False, save_every=2, sample_every=2,
+                                   out_dir=f"{out_dir}/{name}_fp32", **{k: 0 for k in extra})
+        runs[f"train_{name}_fp32"] = _phase(f"train_{name}_fp32", phase_train_dcgan, device, module, fp32)
+        ckpts[name] = f"{cfg.out_dir}/params_latest.npz"
+    serve = _phase("serve_dcgan", phase_serve_dcgan, device, ckpts, out_dir)
+    return {"runs": runs, "serve": serve}
 
 
 def main() -> int:
@@ -1371,6 +1662,9 @@ def main() -> int:
         "wgan-ct bf16": _phase("cuda_vs_cpu_gan_bf16", phase_cuda_vs_cpu_gan, device, precision="bfloat16"),
         "wgan-gp fp32": _phase("cuda_vs_cpu_gan_wgan_gp", phase_cuda_vs_cpu_gan, device, mode="wgan-gp"),
     }
+    dcgan_vs_cpu = {p: _phase(f"cuda_vs_cpu_dcgan_{p}", phase_cuda_vs_cpu_dcgan, device, precision=p)
+                    for p in ("float32", "bfloat16")}
+    dcgan_ref = _phase("dcgan_ref", phase_dcgan_ref, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg = app.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, INCEPTION_FREQUENCY=10,
                          inception_samples=5000, out_dir=f"{out_dir}/bf16")
@@ -1383,6 +1677,7 @@ def main() -> int:
         norm_cfg = app.Config(ITERS=4, save_every=2, sample_every=2, INCEPTION_FREQUENCY=0,
                               NORMALIZATION_D=True, out_dir=f"{out_dir}/norm_d")
         norm_d = _phase("train_norm_d", phase_train, device, norm_cfg)
+        dcgan_runs = run_dcgan_apps(device, out_dir, scorer=Path(out_dir) / "bf16" / "scorer.npz")
     resume_diff = {p: _phase(f"resume_equal_{p}", phase_resume_equal, device, precision=p)
                    for p in ("float32", "bfloat16")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_jax_") as out_dir:
@@ -1403,7 +1698,7 @@ def main() -> int:
         good64_ckpt = _phase("good64_checkpoint", phase_good64_checkpoint, device, out_dir)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
             "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
-            "train64_fp32": train64_fp32}
+            "train64_fp32": train64_fp32, **dcgan_runs["runs"]}
     launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
                 "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
     print(f"train: {json.dumps(dataclasses.asdict(cfg) | {'out_dir': '<tmp>'})}")
@@ -1424,6 +1719,11 @@ def main() -> int:
     print(f"resume_equal_gan: max param diff {json.dumps(resume64_diff)}")
     print(f"good64_checkpoint: {json.dumps(good64_ckpt['scores'])}; cpu diff {good64_ckpt['cpu_diff']:.3g}")
     print(f"serve good64: {json.dumps(good64_ckpt['serve'])}")
+    print(f"cuda_vs_cpu_dcgan: max param diff {json.dumps(dcgan_vs_cpu)}")
+    print(f"dcgan_ref: largest gap to the JAX package's pinned outputs {json.dumps(dcgan_ref)}")
+    for name, run in dcgan_runs["runs"].items():
+        print(_dcgan_line(name, run))
+    print(f"serve mnist, cifar: {json.dumps(dcgan_runs['serve'])}")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
         print(f"{name} launches on the main path: "
               + " + ".join(f"{k} {r[key]}" for k, r in runs.items()) + f" = {launches[name]}")

@@ -1,6 +1,7 @@
 """Shared app plumbing (counterpart of ``ctgan_tpu/apps/common.py``):
-dataclass configs as command lines, the output directory, sample grids and
-the choice of IS/FID scorer."""
+dataclass configs as command lines, the output directory, sample grids,
+the choice of IS/FID scorer, and the train loop of the unconditional GAN
+apps."""
 
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ from ..core import print_model_settings
 from ..eval import TrainedScorer
 from ..utils.images import save_images
 
-__all__ = ["parse_config", "setup_out_dir", "save_sample_grid", "pick_scorer", "find_inception_file"]
+__all__ = [
+    "find_inception_file", "parse_config", "pick_scorer", "require_device", "run_gan_loop",
+    "save_sample_grid", "setup_out_dir",
+]
 
 # where the JAX package looks for the Inception-2015 frozen graph, in its
 # order (ctgan_tpu/eval/inception2015.py:34-39); the last two are relative
@@ -92,3 +96,45 @@ def pick_scorer(channels: int, size: int, out_dir: str, train_data=None, device=
         acc = scorer.fit(train_data[0], train_data[1], epochs=3)
         print(f"IS scorer: fitted in {time.perf_counter() - t0:.3f} s, last batch accuracy {acc:.3f}")
     return scorer
+
+
+def require_device(device) -> "torch.device":
+    """``device`` as a ``torch.device``; a CUDA device must be present."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
+def run_gan_loop(cfg, state, step_fn, rand, test_fn, out_dir: str, device):
+    """The JAX GAN apps' ``train_loop`` call for a ``GanState``: to
+    ``cfg.ITERS`` at their cadence (print every 100, test every
+    ``sample_every``, save every ``save_every`` into ``<out_dir>/ckpt``),
+    the iteration count as ``data_state``, checkpoints in the JAX layout,
+    resuming from ``out_dir``.  ``step_fn(state, rand)`` draws its own
+    batch.  Returns the final state and the records printed by this
+    process."""
+    from ..bridge import state_from_jax, state_to_jax
+    from ..train import GanState, LoopConfig, train_loop
+    from ..utils.logging import MetricLogger
+
+    counter = {"i": 0}
+
+    def next_batch():
+        counter["i"] += 1
+        return ()
+
+    lcfg = LoopConfig(
+        iters=cfg.ITERS, print_every=100, test_every=cfg.sample_every, save_every=cfg.save_every,
+        ckpt_dir=f"{out_dir}/ckpt", allow_fresh_start=cfg.allow_fresh_start,
+    )
+    logger = MetricLogger(out_dir)
+    state = train_loop(
+        state, step_fn, next_batch, rand, lcfg, logger=logger, test_fn=test_fn,
+        data_state=lambda: {"i": counter["i"]},
+        set_data_state=lambda s: counter.update(i=int(s["i"])),
+        to_blob=state_to_jax, from_blob=lambda blob: state_from_jax(blob, device, GanState),
+    )
+    return state, logger.records

@@ -1,5 +1,4 @@
-"""64x64 CT-GAN with the "Good" ResNet (counterpart of
-``ctgan_tpu/apps/ct_gan_64x64.py``).
+"""64x64 CT-GAN (counterpart of ``ctgan_tpu/apps/ct_gan_64x64.py``).
 
     python -m ctgan_tpu_torch.apps.ct_gan_64x64 --ITERS 15 --out_dir runs/x
 
@@ -7,11 +6,18 @@ The flags are the fields of :class:`Config`, under the JAX app's names and
 defaults (``ctgan_tpu/apps/ct_gan_64x64.py:29-63``): ``MODE`` wgan-ct,
 ``ARCH`` good, ``DIM`` 64, batch 64, 5 critic iterations, ``BF16`` and
 ``FUSE_MEANPOOL`` on.  ``CUDA_DROPOUT`` takes the place of
-``PALLAS_DROPOUT`` and, like it, is on by default.  Not ported yet, and
-refused: ``ARCH`` other than ``good`` (ROADMAP Queue 1 items 13 and 14),
-``DATA_DIR`` and ``input`` other than ``hbm`` (item 14: the image-directory
-reader and the native pipeline), ``REMAT`` and a non-fp32
-``OPT_STATE_DTYPE`` (item 17).
+``PALLAS_DROPOUT`` and, like it, is on by default.
+
+``ARCH`` picks G and D as the JAX app's menu does
+(``ctgan_tpu/apps/ct_gan_64x64.py:67-99``): ``good`` (the "Good" ResNet,
+``models.good64``), ``dcgan`` (DCGAN G and D, built under a 0.02 init
+stdev), ``crippled`` (the WGAN paper's G without batch norm, DCGAN D),
+``fc`` (the fully-connected G, ``models.fc``, DCGAN D) and
+``multiplicative`` (gated G and D); ``models.dcgan``.  Only ``good``'s D
+drops out: the other archs launch no kernel.  Not ported yet, and refused:
+``ARCH resnet101``, ``DATA_DIR`` and ``input`` other than ``hbm`` (ROADMAP
+Queue 1 item 14: the image-directory reader and the native pipeline),
+``REMAT`` and a non-fp32 ``OPT_STATE_DTYPE`` (item 17).
 
 Precision as in the flagship app: ``BF16`` sets the bf16 policy
 (``core.precision``) process-wide when the run is on the card; on the CPU
@@ -50,21 +56,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..bridge import from_jax_params, state_from_jax, state_to_jax
+from ..bridge import from_jax_params
 from ..core import Randomness, default_policy, split_params
 from ..data import DeviceSampler, scale_and_flip, synthetic_images
-from ..models import good64
-from ..train import GanConfig, GanState, GanTrainer, LoopConfig, train_loop
-from ..utils.logging import MetricLogger
+from ..models import dcgan, fc, good64
+from ..train import GanConfig, GanState, GanTrainer
 from . import common
-from .common import pick_scorer, save_sample_grid, setup_out_dir
+from .common import pick_scorer, require_device, run_gan_loop, save_sample_grid, setup_out_dir
 
-__all__ = ["App64", "Config", "check_supported", "main", "make_test_fn", "parse_config", "setup"]
+__all__ = ["App64", "Config", "check_supported", "main", "make_test_fn", "parse_config", "pick_arch", "setup"]
 
 CHW = (3, 64, 64)
 N_POOL = 4096
 GEN_CHUNK = 100  # images per generator call in the IS/FID eval (batch statistics!)
 N_GRID = 64
+ARCHS = ("good", "dcgan", "crippled", "fc", "multiplicative")
 
 
 @dataclass(frozen=True)
@@ -101,17 +107,38 @@ def parse_config(argv=None) -> Config:
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for what the port lacks, naming its
     ROADMAP item; ``ValueError`` for what the JAX app refuses too."""
-    if cfg.ARCH in ("dcgan", "crippled", "fc", "multiplicative"):
-        raise NotImplementedError(f"ARCH {cfg.ARCH} is not ported yet: ROADMAP Queue 1 item 13")
     if cfg.ARCH == "resnet101":
         raise NotImplementedError("ARCH resnet101 is not ported yet: ROADMAP Queue 1 item 14")
-    if cfg.ARCH != "good":
+    if cfg.ARCH not in ARCHS:
         raise ValueError(f"unknown ARCH {cfg.ARCH!r}")
     if cfg.DATA_DIR or cfg.input != "hbm":
         raise NotImplementedError("DATA_DIR and input other than 'hbm' (the image-directory reader, "
                                   "the native pipeline) are not ported yet: ROADMAP Queue 1 item 14")
     if cfg.REMAT or cfg.OPT_STATE_DTYPE != "float32":
         raise NotImplementedError("REMAT and OPT_STATE_DTYPE are not ported yet: ROADMAP Queue 1 item 17")
+
+
+def pick_arch(cfg: Config):
+    """``(gen_fn(p, n, rand, noise=None), disc_fn(p, x, rand))`` of
+    ``cfg.ARCH``."""
+    dim, mode = cfg.DIM, cfg.MODE
+    gens = {
+        "good": lambda p, n, rand, noise=None: good64.generator(p, n, rand, dim=dim, noise=noise),
+        "dcgan": lambda p, n, rand, noise=None: dcgan.dcgan64_generator(p, n, rand, dim=dim, noise=noise),
+        "crippled": lambda p, n, rand, noise=None: dcgan.crippled_dcgan64_generator(p, n, rand, dim=dim,
+                                                                                    noise=noise),
+        "fc": lambda p, n, rand, noise=None: fc.fc_generator(p, n, rand, noise=noise),
+        "multiplicative": lambda p, n, rand, noise=None: dcgan.multiplicative_dcgan64_generator(
+            p, n, rand, dim=dim, noise=noise),
+    }
+    if cfg.ARCH == "good":
+        disc = lambda p, x, rand: good64.discriminator(p, x, rand, dim=dim, mode=mode,
+                                                       fuse_meanpool=cfg.FUSE_MEANPOOL)
+    elif cfg.ARCH == "multiplicative":
+        disc = lambda p, x, rand: dcgan.multiplicative_dcgan64_discriminator(p, x, rand, dim=dim, mode=mode)
+    else:
+        disc = lambda p, x, rand: dcgan.dcgan64_discriminator(p, x, rand, dim=dim, mode=mode)
+    return gens[cfg.ARCH], disc
 
 
 class App64(NamedTuple):
@@ -132,18 +159,15 @@ def setup(cfg: Config, device, pool: tuple | None = None) -> App64:
     device = torch.device(device)
     default_policy(enable_bf16=cfg.BF16 and device.type == "cuda")
 
-    def gen_fn(p, n, rand, noise=None):
-        return good64.generator(p, n, rand, dim=cfg.DIM, noise=noise)
-
-    def disc_fn(p, x, rand):
-        return good64.discriminator(p, x, rand, dim=cfg.DIM, mode=cfg.MODE,
-                                    fuse_meanpool=cfg.FUSE_MEANPOOL)
-
+    gen_fn, disc_fn = pick_arch(cfg)
     gcfg = GanConfig(
         mode=cfg.MODE, batch_size=cfg.BATCH_SIZE, critic_iters=cfg.CRITIC_ITERS,
         lambda_gp=cfg.LAMBDA, lambda_ct=cfg.LAMBDA_2, factor_m=cfg.Factor_M, iters=cfg.ITERS,
     )
-    params = good64.init_params(cfg.DIM, cfg.MODE, cfg.seed)
+    if cfg.ARCH == "good":
+        params = good64.init_params(cfg.DIM, cfg.MODE, cfg.seed)
+    else:
+        params = dcgan.init_params(cfg.ARCH, cfg.DIM, cfg.MODE, cfg.seed)
     tensors = {k: v.to(device) for k, v in from_jax_params(params).items()}
     gparams, dparams, rest = split_params(tensors, "Generator", "Discriminator")
     if rest:
@@ -205,35 +229,15 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     ``out_dir`` when it holds a checkpoint.  Returns the final state and
     the records printed by this process."""
     cfg = cfg or parse_config(argv)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    device = require_device(device)
     out_dir = setup_out_dir(cfg)
     app = setup(cfg, device)
     print(f"device {device}, out_dir {out_dir}")
     scorer = None
     if cfg.inception_every:
         scorer = pick_scorer(3, 64, out_dir, train_data=app.pool, device=device)
-
-    counter = {"i": 0}
-
-    def next_batch():
-        counter["i"] += 1
-        return ()
-
-    lcfg = LoopConfig(
-        iters=cfg.ITERS, print_every=100, test_every=cfg.sample_every, save_every=cfg.save_every,
-        ckpt_dir=f"{out_dir}/ckpt", allow_fresh_start=cfg.allow_fresh_start,
-    )
-    logger = MetricLogger(out_dir)
-    state = train_loop(
-        app.state, make_step_fn(app), next_batch, app.rand, lcfg, logger=logger,
-        test_fn=make_test_fn(cfg, app, scorer, out_dir),
-        data_state=lambda: {"i": counter["i"]},
-        set_data_state=lambda s: counter.update(i=int(s["i"])),
-        to_blob=state_to_jax, from_blob=lambda blob: state_from_jax(blob, device, GanState),
-    )
-    return state, logger.records
+    return run_gan_loop(cfg, app.state, make_step_fn(app), app.rand,
+                        make_test_fn(cfg, app, scorer, out_dir), out_dir, device)
 
 
 if __name__ == "__main__":

@@ -56,7 +56,7 @@ from ..models import resnet_cifar
 from ..train import AcganConfig, AcganState, AcganTrainer, LoopConfig, train_loop
 from ..utils.logging import MetricLogger
 from . import common
-from .common import pick_scorer, save_sample_grid, setup_out_dir
+from .common import pick_scorer, require_device, save_sample_grid, setup_out_dir
 
 __all__ = ["Config", "Flagship", "main", "make_test_fn", "parse_config", "setup"]
 
@@ -196,9 +196,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     ``out_dir`` when it holds a checkpoint.  Returns the final state and
     the records printed by this process."""
     cfg = cfg or parse_config(argv)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    device = require_device(device)
     out_dir = setup_out_dir(cfg)
     flagship = setup(cfg, device)
     print(format_param_table(flagship.state.gen_params, "G Params"))

@@ -1,18 +1,21 @@
 """Sample generation from a trained checkpoint, the serving path
 (counterpart of ``ctgan_tpu/apps/generate.py``), for ``--model
-cifar_resnet`` (the flagship) and ``--model good64`` (the 64 px "Good"
-ResNet).
+cifar_resnet`` (the flagship), ``good64`` (the 64 px "Good" ResNet),
+``mnist`` and ``cifar`` (the paper's conv generators).
 
     python -m ctgan_tpu_torch.apps.generate --ckpt runs/ct_gan_cifar_resnet/ckpt/ckpt_1000.npz --n 100
     python -m ctgan_tpu_torch.apps.generate --model good64 --ckpt runs/good64_r5/params_latest.npz
+    python -m ctgan_tpu_torch.apps.generate --model mnist --ckpt runs/ct_gan_mnist/params_latest.npz
     python -m ctgan_tpu_torch.apps.generate --batch 1024 --serve_iters 50
 
 ``--ckpt`` takes a checkpoint of either package's train loop (or a
 ``params_latest.npz``, or a plain param dict).  ``--bf16`` runs G under the
 bf16 precision policy, else under fp32, as the JAX app's ``_apply_call``
 does (``ctgan_tpu/apps/generate.py:109-117``); samples leave the device as
-fp32 either way.  ``--dim`` is G's width; for ``good64`` the default 128
-means 64, as in the JAX app (``ctgan_tpu/apps/generate.py:92-96``).
+fp32 either way.  ``--dim`` is G's width; for ``good64`` and ``mnist`` the
+default 128 means 64, as in the JAX app (``ctgan_tpu/apps/generate.py:61-96``);
+``mnist`` is the wgan-CT G (no batch norm), as there.  Samples are in
+[0, 1] for ``mnist`` and [-1, 1] for the others.
 Samples are made in batches of ``--batch`` (with random labels for
 ``cifar_resnet``); G's batch norm uses each batch's statistics, so the
 batch size is part of the result.  The first 100 go to
@@ -21,9 +24,8 @@ batch size is part of the result.  The first 100 go to
 (fresh weights when no ``--ckpt`` is given: the same compute) and prints
 one JSON line with the JAX app's keys.
 
-Not ported yet, and refused: the models ``mnist``, ``cifar`` and
-``lsun128`` (ROADMAP Queue 1 items 12b, 13 and 14) and
-``--aot``/``--aot_save`` (item 12b).
+Not ported yet, and refused: the model ``lsun128`` (ROADMAP Queue 1
+items 12b and 14) and ``--aot``/``--aot_save`` (item 12b).
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ import torch
 
 from ..bridge import from_jax_params
 from ..core import Randomness, precision_policy, split_params
-from ..models import good64, resnet_cifar
+from ..models import dcgan, good64, resnet_cifar
 from ..utils.checkpoint import load_checkpoint
-from .common import parse_config, save_sample_grid
+from .common import parse_config, require_device, save_sample_grid
 
 __all__ = ["Config", "load_gen_params", "main"]
 
@@ -60,14 +62,9 @@ class Config:
     aot: str = ""
 
 
-_NOT_PORTED = {
-    "mnist": "ROADMAP Queue 1 items 12b and 13 (unconditional GAN path)",
-    "cifar": "ROADMAP Queue 1 items 12b and 13 (unconditional GAN path)",
-    "lsun128": "ROADMAP Queue 1 items 12b and 14 (64 px and 128 px)",
-}
+_NOT_PORTED = {"lsun128": "ROADMAP Queue 1 items 12b and 14 (64 px and 128 px)"}
 
-
-_SHAPES = {"cifar_resnet": (3, 32, 32), "good64": (3, 64, 64)}
+_SHAPES = {"cifar_resnet": (3, 32, 32), "good64": (3, 64, 64), "mnist": (1, 28, 28), "cifar": (3, 32, 32)}
 
 
 def _check_supported(cfg: Config) -> None:
@@ -93,15 +90,24 @@ def load_gen_params(ckpt_path: str) -> dict[str, np.ndarray]:
     return {k: v for k, v in blob.items() if hasattr(v, "shape")}
 
 
-def _good64_dim(cfg: Config) -> int:
+def _width_64(cfg: Config) -> int:
+    """G's width for ``good64`` and ``mnist``: ``--dim``, but 64 for the
+    default 128."""
     return 64 if cfg.dim == 128 else cfg.dim
+
+
+def _value_range(cfg: Config) -> tuple[float, float]:
+    return (0.0, 1.0) if cfg.model == "mnist" else (-1.0, 1.0)
 
 
 def _gen_params(cfg: Config, device) -> dict[str, torch.Tensor]:
     if cfg.ckpt:
         params = load_gen_params(cfg.ckpt)
     elif cfg.model == "good64":
-        params = split_params(good64.init_params(_good64_dim(cfg), seed=cfg.seed), "Generator")[0]
+        params = split_params(good64.init_params(_width_64(cfg), seed=cfg.seed), "Generator")[0]
+    elif cfg.model in ("mnist", "cifar"):
+        dim = _width_64(cfg) if cfg.model == "mnist" else cfg.dim
+        params = split_params(dcgan.init_params(cfg.model, dim, seed=cfg.seed), "Generator")[0]
     else:
         mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
         params = split_params(resnet_cifar.init_params(mcfg, cfg.seed), "Generator")[0]
@@ -109,13 +115,17 @@ def _gen_params(cfg: Config, device) -> dict[str, torch.Tensor]:
 
 
 def _sampler(cfg: Config, params: dict, device):
-    """``call(n, seed) -> [n, C*H*W]`` images in [-1, 1] (bf16 under
-    ``--bf16``), noise (and labels) drawn from ``seed``."""
+    """``call(n, seed) -> [n, C*H*W]`` images (bf16 under ``--bf16``),
+    noise (and labels) drawn from ``seed``."""
     mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
 
     def body(n: int, rand: Randomness) -> torch.Tensor:
         if cfg.model == "good64":
-            return good64.generator(params, n, rand, dim=_good64_dim(cfg))
+            return good64.generator(params, n, rand, dim=_width_64(cfg))
+        if cfg.model == "mnist":
+            return dcgan.mnist_generator(params, n, rand, dim=_width_64(cfg))
+        if cfg.model == "cifar":
+            return dcgan.cifar_generator(params, n, rand, dim=cfg.dim)
         return resnet_cifar.generator(params, n, rand.labels(n, mcfg.n_labels), mcfg, rand)
 
     @torch.no_grad()
@@ -170,13 +180,11 @@ def _serve_bench(cfg: Config, call, device) -> dict:
 
 
 def main(argv=None, cfg: Config | None = None, device="cuda"):
-    """Samples (``[n, C*H*W]`` NumPy, in [-1, 1]) or, with
+    """Samples (``[n, C*H*W]`` NumPy, in the model's value range) or, with
     ``--serve_iters``, the serving measurement."""
     cfg = cfg or parse_config(Config, argv)
     _check_supported(cfg)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    device = require_device(device)
     if cfg.serve_iters > 0:
         return _serve_bench(cfg, _sampler(cfg, _gen_params(cfg, device), device), device)
     if not cfg.ckpt:
@@ -186,7 +194,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
             for i in range(0, cfg.n, cfg.batch)]
     samples = torch.cat(outs)[: cfg.n].numpy()
     grid_path = f"{cfg.out_prefix}.png"
-    save_sample_grid(samples[: min(cfg.n, 100)], _SHAPES[cfg.model], grid_path)
+    save_sample_grid(samples[: min(cfg.n, 100)], _SHAPES[cfg.model], grid_path, value_range=_value_range(cfg))
     print(f"wrote {grid_path} ({min(cfg.n, 100)} samples)")
     if cfg.save_npz:
         np.savez(f"{cfg.out_prefix}.npz", samples=samples)

@@ -1,5 +1,6 @@
 """Matrix product and convolution under the precision policy (counterpart
-of ``matmul`` and ``conv`` in ``ctgan_tpu/core/matmul.py``).
+of ``matmul``, ``conv`` and ``conv_transpose`` in
+``ctgan_tpu/core/matmul.py``).
 
 Under fp32 both operands are promoted to their common type, at least fp32
 (an activation that is bf16 is promoted, as ``jnp.dot`` promotes it; a
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from .precision import compute_dtype
 
-__all__ = ["conv", "matmul"]
+__all__ = ["conv", "conv_transpose", "matmul"]
 
 
 def _fp32_operands(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
@@ -48,3 +49,9 @@ def matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 def conv(x: torch.Tensor, filters: torch.Tensor, *, stride: int = 1, padding=0) -> torch.Tensor:
     """2-D convolution of NCHW ``x`` with OIHW ``filters``, no bias."""
     return _apply(lambda a, b: F.conv2d(a, b, stride=stride, padding=padding), x, filters)
+
+
+def conv_transpose(x: torch.Tensor, filters: torch.Tensor, *, stride: int, padding: int) -> torch.Tensor:
+    """2-D transposed convolution of NCHW ``x`` with ``[in, out, kH, kW]``
+    ``filters``, no bias."""
+    return _apply(lambda a, b: F.conv_transpose2d(a, b, stride=stride, padding=padding), x, filters)

@@ -3,9 +3,11 @@
 
 Parameters are a flat ``name -> array`` dict under the JAX package's names
 (``Generator.1.Conv1.Filters``).  :class:`ParamInit` creates them in the
-JAX layout (HWIO filters, ``[in, out]`` linear weights) with NumPy, drawing
-from ``np.random.default_rng(seed)`` in the order the JAX model creates
-them, so one seed gives the same weights in both packages.
+JAX layout (HWIO filters, HWOI transposed-conv filters, ``[in, out]``
+linear weights) with NumPy, drawing from ``np.random.default_rng(seed)`` in
+the order the JAX model creates them, so one seed gives the same weights in
+both packages; a ``WeightsStdevOverride`` block (``ops.init``) overrides
+every draw's stdev, as in the JAX package.
 ``ctgan_tpu_torch.bridge.from_jax_params`` then converts them to tensors.
 :func:`format_param_table` and :func:`print_model_settings` are the apps'
 start-up printouts (``ctgan_tpu/core/store.py:266-290``).
@@ -41,8 +43,16 @@ class ParamInit:
             self.rng, stdev, (filter_size, filter_size, input_dim, output_dim)))
         self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
 
-    def linear(self, name: str, input_dim: int, output_dim: int) -> None:
-        self.add(name + ".W", lambda: linear_initializer(self.rng, input_dim, output_dim))
+    def deconv(self, name: str, input_dim: int, output_dim: int, filter_size: int,
+               *, he_init: bool = True, stride: int = 2) -> None:
+        """A transposed conv: an HWOI ``[k, k, out, in]`` filter and biases."""
+        stdev = conv_filter_stdev(input_dim, output_dim, filter_size, stride, he_init, transposed=True)
+        self.add(name + ".Filters", lambda: uniform_stdev(
+            self.rng, stdev, (filter_size, filter_size, output_dim, input_dim)))
+        self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
+
+    def linear(self, name: str, input_dim: int, output_dim: int, initialization: str | None = None) -> None:
+        self.add(name + ".W", lambda: linear_initializer(self.rng, input_dim, output_dim, initialization))
         self.add(name + ".b", lambda: np.zeros(output_dim, "float32"))
 
     def norm(self, name: str, channels: int, n_labels: int | None = None) -> None:

@@ -1,4 +1,4 @@
-"""CIFAR-10 (counterpart of ``ctgan_tpu/data/cifar10.py:34-46``).
+"""CIFAR-10 (counterpart of ``load_arrays`` and ``load`` in ``ctgan_tpu/data/cifar10.py:34-63``).
 
 Reads the python-version batch files when ``data_dir`` holds them, else
 makes the deterministic synthetic set.  Flat ``[N, 3072]`` uint8 in
@@ -18,9 +18,10 @@ import pickle
 
 import numpy as np
 
+from .iterator import epoch_batches
 from .synthetic import synthetic_cifar10
 
-__all__ = ["load_arrays", "load_train"]
+__all__ = ["load", "load_arrays", "load_train"]
 
 
 def _unpickle(path):
@@ -45,6 +46,14 @@ def load_arrays(data_dir: str | None = None, n_examples: int | None = None) -> d
     if n_examples is not None:
         train = (train[0][:n_examples], train[1][:n_examples])
     return {"train": tuple(a.copy() for a in train), "test": tuple(a.copy() for a in test)}
+
+
+def load(batch_size: int, data_dir: str | None = None, n_examples: int | None = None, seed: int = 0):
+    """``(train_gen, test_gen)``: factories of one epoch's shuffled
+    ``(images, labels)`` batches each, drawn with seeds ``seed`` and
+    ``seed + 1`` (``ctgan_tpu/data/cifar10.py:50-63``)."""
+    d = load_arrays(data_dir, n_examples)
+    return epoch_batches(list(d["train"]), batch_size, seed), epoch_batches(list(d["test"]), batch_size, seed + 1)
 
 
 def load_train(data_dir: str | None = None, n_examples: int | None = None):

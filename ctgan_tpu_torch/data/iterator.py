@@ -1,16 +1,65 @@
-"""Device-resident sampler (counterpart of
-``ctgan_tpu/data/iterator.py::DeviceSampler``).
+"""Data iterators (counterpart of ``EpochIterator`` and ``DeviceSampler`` in
+``ctgan_tpu/data/iterator.py``).
 
-The uint8 set lives on the device.  Each iteration takes the next
-``critic_iters * batch_size`` slots of a per-epoch permutation, as
-``[K, B, ...]`` stacks, so no data crosses from the host while training.
+* :class:`EpochIterator`: shuffled epochs of host arrays, drop-last, with
+  the JAX package's NumPy permutations, so both give the same batches.
+* :class:`DeviceSampler`: the set lives on the device.  Each iteration
+  takes the next ``critic_iters * batch_size`` slots of a per-epoch
+  permutation, as ``[K, B, ...]`` stacks, so no data crosses from the host
+  while training.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
-__all__ = ["DeviceSampler"]
+__all__ = ["DeviceSampler", "EpochIterator", "epoch_batches"]
+
+
+class EpochIterator:
+    """Shuffled batches of aligned arrays; a fresh permutation
+    (``default_rng((seed, epoch))``) each epoch, fixed batch size."""
+
+    def __init__(self, arrays: Sequence[np.ndarray], batch_size: int, seed: int = 0):
+        n = len(arrays[0])
+        if any(len(a) != n for a in arrays) or n < batch_size:
+            raise ValueError(f"arrays of unequal length, or fewer than {batch_size} rows")
+        self.arrays = [np.ascontiguousarray(a) for a in arrays]
+        self.batch_size, self.seed, self.epoch, self.cursor = batch_size, seed, 0, 0
+        self._perm = self._epoch_perm(0)
+
+    def _epoch_perm(self, epoch: int) -> np.ndarray:
+        return np.random.default_rng((self.seed, epoch)).permutation(len(self.arrays[0]))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.cursor + self.batch_size > len(self._perm):
+            self.epoch, self.cursor = self.epoch + 1, 0
+            self._perm = self._epoch_perm(self.epoch)
+        idx = self._perm[self.cursor:self.cursor + self.batch_size]
+        self.cursor += self.batch_size
+        out = tuple(a[idx] for a in self.arrays)
+        return out[0] if len(out) == 1 else out
+
+    def batches_per_epoch(self) -> int:
+        return len(self.arrays[0]) // self.batch_size
+
+
+def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int, seed: int):
+    """A factory of generators of one epoch's batches of ``arrays`` (the
+    reference's ``tflib`` loaders), each call the same epoch."""
+
+    def gen():
+        it = EpochIterator(arrays, batch_size, seed=seed)
+        for _ in range(it.batches_per_epoch()):
+            yield next(it)
+
+    return gen
 
 
 class DeviceSampler:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_images", "synthetic_cifar10"]
+__all__ = ["synthetic_cifar10", "synthetic_images", "synthetic_mnist"]
 
 _CHUNK = 4096
 
@@ -58,6 +58,17 @@ def synthetic_images(
         imgs = np.clip(imgs + noise, 0.0, 1.0)
         flat[lo:lo + _CHUNK] = (imgs * 255).astype("uint8").reshape(len(lab), -1)
     return flat, labels
+
+
+def synthetic_mnist(n_train: int = 50000, n_valid: int = 10000, n_test: int = 10000, seed: int = 1234):
+    """``(train_x, train_y), (valid_x, valid_y), (test_x, test_y)``: flat
+    ``[N, 784]`` float32 in [0, 1], the ``mnist.pkl.gz`` format, the JAX
+    package's draw (``ctgan_tpu/data/synthetic.py:57-65``)."""
+    out = []
+    for i, n in enumerate((n_train, n_valid, n_test)):
+        flat, labels = synthetic_images(n, 1, 28, seed=seed + i)
+        out.append((flat.astype("float32") / 255.0, labels))
+    return tuple(out)
 
 
 def synthetic_cifar10(n_train: int = 50000, n_test: int = 10000, seed: int = 4321):

@@ -6,11 +6,12 @@ from .gan import (
     consistency_term,
     dcgan_losses,
     gradient_penalty,
+    input_slopes,
     lsgan_losses,
     wgan_losses,
 )
 
 __all__ = [
     "acgan_accuracy", "acgan_loss", "consistency_term", "dcgan_losses", "gradient_penalty",
-    "lsgan_losses", "wgan_losses",
+    "input_slopes", "lsgan_losses", "wgan_losses",
 ]

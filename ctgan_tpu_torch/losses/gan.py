@@ -11,8 +11,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "wgan_losses", "consistency_term", "gradient_penalty", "dcgan_losses", "lsgan_losses",
-    "acgan_loss", "acgan_accuracy",
+    "wgan_losses", "consistency_term", "gradient_penalty", "input_slopes", "dcgan_losses",
+    "lsgan_losses", "acgan_loss", "acgan_accuracy",
 ]
 
 
@@ -49,6 +49,16 @@ def gradient_penalty(
     grads = grads.float()
     slopes = torch.sqrt(grads.square().sum(dim=tuple(range(1, grads.ndim))) + 1e-12)
     return (slopes - target).square().mean(), slopes
+
+
+def input_slopes(disc_fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``|dD(x)/dx|_2`` per example, with 1e-12 inside the square root,
+    reduced in fp32: the reference's slope-on-real-data monitor
+    (``ctgan_tpu/losses/gan.py:108-117``).  No graph is kept."""
+    x = x.detach().requires_grad_(True)
+    (grads,) = torch.autograd.grad(disc_fn(x).float().sum(), x)
+    grads = grads.float()
+    return torch.sqrt(grads.square().sum(dim=tuple(range(1, grads.ndim))) + 1e-12)
 
 
 def _sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

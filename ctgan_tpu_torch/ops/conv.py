@@ -1,5 +1,5 @@
-"""Convolutions (counterpart of ``conv2d``, ``conv_mean_pool2d`` and
-``mean_pool_conv2d`` in ``ctgan_tpu/ops/conv.py``).
+"""Convolutions (counterpart of ``conv2d``, ``conv_mean_pool2d``,
+``mean_pool_conv2d`` and ``deconv2d`` in ``ctgan_tpu/ops/conv.py``).
 
 NCHW activations and OIHW filters; ``ctgan_tpu_torch.bridge`` converts the
 JAX package's HWIO filters.  Padding is TensorFlow's SAME, made explicit:
@@ -11,7 +11,7 @@ as one stride-2 conv with a transformed filter.  The transform is plain
 tensor math on the fp32 filter; the parameters are those of the unfused
 conv, so both arms share checkpoints.
 
-Every conv goes through ``core.matmul.conv``, which casts the input and the
+Every conv goes through ``core.matmul.conv`` (``conv_transpose``), which casts the input and the
 (transformed) filter to the compute dtype of the precision policy; the bias
 is added afterwards in the conv output's dtype, as the JAX package adds it
 (``ctgan_tpu/ops/conv.py:118,193,247``).
@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.matmul import conv as _conv
+from ..core.matmul import conv_transpose as _conv_transpose
 
-__all__ = ["same_padding", "conv2d", "conv_mean_pool2d", "mean_pool_conv2d"]
+__all__ = ["same_padding", "conv2d", "conv_mean_pool2d", "deconv2d", "mean_pool_conv2d"]
 
 
 def same_padding(size: int, filter_size: int, stride: int) -> tuple[int, int]:
@@ -86,3 +87,28 @@ def mean_pool_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = 
     _require_even_hw("mean_pool_conv2d", x)
     wf = 0.25 * w.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
     return _add_bias(_conv(x, wf, stride=2, padding=k - 1), b)
+
+
+def deconv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, stride: int = 2) -> torch.Tensor:
+    """TF's SAME transposed conv (``tf.nn.conv2d_transpose``): the gradient
+    of the SAME stride-2 conv that maps ``2H x 2W`` to ``H x W``, so the
+    output is exactly ``2H x 2W`` (``ctgan_tpu/ops/conv.py:335-382``).
+
+    ``w`` is ``[in, out, kH, kW]``: the bridge turns the JAX package's HWOI
+    filter into what it calls OIHW by ``permute(3, 2, 0, 1)``, which for a
+    transposed conv is ``[in, out, kH, kW]``, the layout
+    ``F.conv_transpose2d`` takes, with no spatial flip.  That forward conv
+    pads ``2H`` asymmetrically, (1, 2) for a 5x5 filter at stride 2, so the
+    transposed conv crops that leading pad from its full ``2H + 3`` output
+    (``padding=1``) and then keeps the first ``2H`` rows and columns.
+    ``output_padding`` cannot express it: ``padding=2, output_padding=1``
+    has the right shape and is shifted by one pixel.  The JAX models use 5x5
+    filters at stride 2 only, and nothing else is accepted."""
+    k = w.shape[-1]
+    if k != 5 or w.shape[-2] != 5 or stride != 2:
+        raise ValueError(f"deconv2d takes the JAX models' 5x5 filters at stride 2 (got {k}x{w.shape[-2]}, "
+                         f"stride {stride})")
+    h, wd = x.shape[-2:]
+    lead = (same_padding(stride * h, k, stride)[0], same_padding(stride * wd, k, stride)[0])
+    out = _conv_transpose(x, w, stride=stride, padding=lead)
+    return _add_bias(out[:, :, : stride * h, : stride * wd], b)

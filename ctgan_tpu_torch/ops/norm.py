@@ -1,6 +1,7 @@
 """Batch and layer normalisation (counterpart of ``batchnorm``,
 ``cond_batchnorm``, ``layernorm`` and ``cond_layernorm`` in
-``ctgan_tpu/ops/norm.py``).  NCHW.
+``ctgan_tpu/ops/norm.py``).  NCHW; batch norm also takes ``[N, F]``
+(the DCGAN generators normalise their input linear's output per feature).
 
 Each computes its statistics and its affine in fp32 (float64 for a float64
 input) and returns the input's dtype (``ctgan_tpu/ops/norm.py:46-201``):
@@ -37,26 +38,30 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def _per_channel(t: torch.Tensor) -> torch.Tensor:
-    """``[C]`` -> ``[C, 1, 1]``; ``[N, C]`` -> ``[N, C, 1, 1]``."""
-    return t[..., None, None]
+def _per_channel(t: torch.Tensor, ndim: int = 4) -> torch.Tensor:
+    """``[C]`` -> ``[C, 1, 1]``; ``[N, C]`` -> ``[N, C, 1, 1]`` (no trailing
+    axes for an ``ndim``-2 input)."""
+    return t.reshape(*t.shape, *(1,) * (ndim - 2))
 
 
 def _batch_normed(x: torch.Tensor) -> torch.Tensor:
-    """The widened ``x`` normalised by its batch statistics (no affine)."""
+    """The widened ``x`` normalised by its batch statistics over every axis
+    but the channel axis 1 (no affine)."""
     x = _wide(x)
     if x.device.type != "cpu":
         return F.batch_norm(x, None, None, training=True, eps=EPS)
-    mean = x.mean(dim=(0, 2, 3), keepdim=True)
+    axes = (0, *range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
     centred = x - mean
-    return centred * torch.rsqrt(centred.square().mean(dim=(0, 2, 3), keepdim=True) + EPS)
+    return centred * torch.rsqrt(centred.square().mean(dim=axes, keepdim=True) + EPS)
 
 
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """NCHW, or ``[N, F]`` with per-feature statistics."""
     if x.device.type != "cpu":
         return F.batch_norm(_wide(x), None, None, weight=scale, bias=offset, training=True,
                             eps=EPS).to(x.dtype)
-    return (_batch_normed(x) * _per_channel(scale) + _per_channel(offset)).to(x.dtype)
+    return (_batch_normed(x) * _per_channel(scale, x.ndim) + _per_channel(offset, x.ndim)).to(x.dtype)
 
 
 def cond_batchnorm(

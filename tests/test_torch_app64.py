@@ -190,8 +190,24 @@ def test_app_scores_with_the_committed_scorer(tmp_path, small_pool):
     assert last["iteration"] == 1 and 1.0 <= last["inception score"] <= 10.0 and math.isfinite(last["fid"])
 
 
+@pytest.mark.parametrize("arch,mode", [
+    ("dcgan", "wgan-ct"), ("crippled", "dcgan"), ("fc", "wgan-gp"), ("multiplicative", "wgan-ct"),
+])
+def test_app_trains_the_dcgan_family_archs(tmp_path, small_pool, arch, mode):
+    """``ARCH dcgan|crippled|fc|multiplicative`` (``models.dcgan``,
+    ``models.fc``) train 2 iterations and checkpoint; D's norm is a layer
+    norm in wgan-ct and batch norm otherwise (the same names); the DCGAN
+    D's draw under the 0.02 override."""
+    state, records = app.main(cfg=_cfg(tmp_path, ITERS=2, ARCH=arch, MODE=mode), device="cpu")
+    assert state.step == 2 and (tmp_path / "ckpt" / "ckpt_2.npz").is_file()
+    assert all(math.isfinite(r["disc_cost"]) and math.isfinite(r["gen_cost"]) for r in records)
+    assert "Discriminator.BN2.scale" in state.disc_params
+    assert ("Generator.1.Linear.W" in state.gen_params) == (arch == "fc")
+    blob = load_checkpoint(str(tmp_path / "params_latest.npz"))
+    assert set(blob["params"]["gen_params"]) == {k for k in state.gen_params}
+
+
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(ARCH="dcgan"), NotImplementedError, "item 13"),
     (dict(ARCH="resnet101"), NotImplementedError, "item 14"),
     (dict(ARCH="nope"), ValueError, "unknown ARCH"),
     (dict(DATA_DIR="/data"), NotImplementedError, "item 14"),
@@ -234,4 +250,4 @@ def test_generate_serves_good64(tmp_path, small_pool):
     with torch.no_grad():
         want = app.good64.generator(state.gen_params, 3, Randomness(3, "cpu"), dim=8)
     np.testing.assert_allclose(samples[3:], want.numpy(), atol=1e-6)
-    assert generate._good64_dim(generate.Config(model="good64")) == 64
+    assert generate._width_64(generate.Config(model="good64")) == 64

@@ -41,9 +41,9 @@ def test_resume_equal_gan_phase_rehearses_on_cpu(chip_smoke, precision):
 def test_good64_masks_per_iteration(chip_smoke):
     """63 launches per 1G+5D wgan-ct iteration; 21 at each of the three
     shapes (3 in G's substep, 4 passes x 5 critic substeps)."""
-    assert chip_smoke.good64_masks_per_iteration(app64.Config()) == 63
-    assert chip_smoke.good64_masks_per_iteration(app64.Config(MODE="wgan-gp")) == 48
-    assert chip_smoke.good64_masks_per_iteration(app64.Config(MODE="dcgan")) == 9
+    assert chip_smoke.gan_masks_per_iteration(app64.Config()) == 63
+    assert chip_smoke.gan_masks_per_iteration(app64.Config(MODE="wgan-gp")) == 48
+    assert chip_smoke.gan_masks_per_iteration(app64.Config(MODE="dcgan")) == 9
     assert chip_smoke.good64_mask_shapes() == [(64, 256, 16, 16), (64, 512, 8, 8), (64, 512, 4, 4)]
 
 

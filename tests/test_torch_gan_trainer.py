@@ -22,6 +22,8 @@ parameters whose gradient is zero in exact arithmetic
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import pytest
@@ -129,6 +131,26 @@ def _models(mode: str):
     return (jax_gen, jax_disc), (port_gen, port_disc)
 
 
+@dataclass
+class Net:
+    """A G/D pair in both packages, as ``check_iterations`` drives it."""
+
+    jax_model: object  # the JAX model module whose dropout and noise JaxDraws patches
+    jax_fns: tuple  # (gen(n, noise=None), disc(x))
+    port_fns: tuple  # (gen(p, n, rand, noise=None), disc(p, x, rand))
+    params: Callable[[int], tuple[dict, dict]]  # seed -> (gen, disc) as JAX arrays
+    real_dim: int
+    real_low: float  # reals are uniform in [real_low, 1]
+    zero_grad: list
+    grad_rtol: float = GRAD_RTOL
+
+
+def good64_net(mode: str) -> Net:
+    """The 64 px "Good" ResNet at dim 8."""
+    return Net(jax_good64, *_models(mode), lambda seed: _jax_arrays(DIM, mode, seed), 3 * 64 * 64, -1.0,
+               port_good64.zero_grad_params(mode))
+
+
 def _port_state(jax_state) -> GanState:
     def opt(o):
         return {k: from_jax_params({n: np.asarray(a) for n, a in v.items()}) if isinstance(v, dict)
@@ -148,7 +170,7 @@ def _step_bound(trainer: GanTrainer) -> float:
 
 
 def _assert_update_close(port: dict, port_opt: dict, jax_params: dict, jax_opt: dict, zero_grad,
-                         bound: float, n_updates: int):
+                         bound: float, n_updates: int, grad_rtol: float = GRAD_RTOL):
     """G's or D's params after a substep, and its gradients, against JAX's
     (the module's tolerances); ``n_updates`` 0: the update was dropped."""
     ours, theirs = to_jax_params(port), {k: np.asarray(v) for k, v in jax_params.items()}
@@ -160,7 +182,7 @@ def _assert_update_close(port: dict, port_opt: dict, jax_params: dict, jax_opt: 
     else:  # RMSProp's mean square: compare its square roots, |g| at a first step
         theirs_g = {k: np.sqrt(np.asarray(v)) for k, v in jax_opt["ms"].items()}
         ours_g = {k: v.sqrt() for k, v in port_opt["ms"].items()}
-    assert_grads_close(theirs_g, ours_g, "gradient moment", rtol=GRAD_RTOL)
+    assert_grads_close(theirs_g, ours_g, "gradient moment", rtol=grad_rtol)
     grads = {k: np.abs(np.asarray(v, np.float64)) for k, v in theirs_g.items()}
     mass = sum(float(g.sum()) for k, g in grads.items() if k not in zero_grad)
     apart = 0.0
@@ -183,7 +205,7 @@ def test_iterations_match_jax(mode, extra, monkeypatch):
     check_iterations(mode, extra, monkeypatch)
 
 
-def check_iterations(mode: str, extra: dict, monkeypatch) -> None:
+def check_iterations(mode: str, extra: dict, monkeypatch, net: Net | None = None) -> None:
     """Two iterations of the JAX trainer, substep by substep (the jitted
     ``gen_substep`` and ``critic_substep``; step 0, whose G update is
     dropped, then step 1), against the port's substeps started from the
@@ -194,15 +216,17 @@ def check_iterations(mode: str, extra: dict, monkeypatch) -> None:
     gradient that is zero up to rounding (allowed) is not carried into the
     next substep's fakes.  ``dev_cost`` against the critic's ``disc_cost``
     (the JAX ``disc_cost_fn`` is the same loss).  Then the port's whole
-    ``step`` at step 0."""
-    gen, disc = _jax_arrays(DIM, mode, seed=5)
-    draws = JaxDraws(monkeypatch, model=jax_good64)
-    (jax_gen, jax_disc), (port_gen, port_disc) = _models(mode)
+    ``step`` at step 0.  ``net`` is the 64 px "Good" ResNet unless given."""
+    net = net or good64_net(mode)
+    gen, disc = net.params(5)
+    draws = JaxDraws(monkeypatch, model=net.jax_model)
+    (jax_gen, jax_disc), (port_gen, port_disc) = net.jax_fns, net.port_fns
     jcfg = JaxGanConfig(mode=mode, batch_size=BATCH, critic_iters=N_CRITIC, **extra)
     init_state, step_fn, _, _ = make_gan_trainer(jax_gen, jax_disc, jcfg)
     trainer = GanTrainer(port_gen, port_disc, GanConfig(mode=mode, batch_size=BATCH, critic_iters=N_CRITIC,
                                                         **extra))
-    real = np.random.default_rng(7).uniform(-1, 1, size=(N_CRITIC, BATCH, 3 * 64 * 64)).astype(np.float32)
+    real = np.random.default_rng(7).uniform(net.real_low, 1, size=(N_CRITIC, BATCH, net.real_dim))
+    real = real.astype(np.float32)
     jgen, jcrit = jax.jit(step_fn.gen_substep), jax.jit(step_fn.critic_substep)
     key = jax.random.PRNGKey(123)
     states = [init_state(gen, disc)]
@@ -212,9 +236,9 @@ def check_iterations(mode: str, extra: dict, monkeypatch) -> None:
         states += [s_g, s_d]
         if step == 0:
             states.append(step_fn.bump_step(s_d))
-    d_passes = {"wgan-ct": 4, "wgan-gp": 3}.get(mode, 2)  # real, fake (, CT pass) (, GP)
+    d_passes = {"wgan-ct": 4, "wgan-CT": 4, "wgan-gp": 3}.get(mode, 2)  # real, fake (, CT pass) (, GP)
     assert len(draws.dropouts) == 3 + 3 * d_passes  # each substep traced once: the same draws twice
-    zero_grad = port_good64.zero_grad_params(mode)
+    zero_grad = net.zero_grad
     bound = _step_bound(trainer)
 
     for step, (before, after_g, after_d) in enumerate((states[0:3], states[3:6])):
@@ -223,7 +247,7 @@ def check_iterations(mode: str, extra: dict, monkeypatch) -> None:
         cost = trainer.gen_substep(state, rand)
         np.testing.assert_allclose(float(cost), float(jgen(before, key)[1]), rtol=1e-4, atol=1e-5)
         _assert_update_close(state.gen_params, state.gen_opt, after_g.gen_params, after_g.gen_opt,
-                             zero_grad, bound, step)
+                             zero_grad, bound, step, net.grad_rtol)
         state = _port_state(after_g)
         got = trainer.critic_substep(state, torch.from_numpy(real[0]), rand)
         assert rand.exhausted() and state.step == step
@@ -232,7 +256,7 @@ def check_iterations(mode: str, extra: dict, monkeypatch) -> None:
         for k, v in want.items():
             np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-4, atol=1e-5, err_msg=k)
         _assert_update_close(state.disc_params, state.disc_opt, after_d.disc_params, after_d.disc_opt,
-                             zero_grad, bound, 1)
+                             zero_grad, bound, 1, net.grad_rtol)
         if "t" in state.disc_opt:
             assert state.gen_opt["t"] == float(after_d.gen_opt["t"]) == step
             assert state.disc_opt["t"] == float(after_d.disc_opt["t"])
@@ -249,7 +273,7 @@ def check_iterations(mode: str, extra: dict, monkeypatch) -> None:
     got = trainer.step(state, torch.from_numpy(real), draws.injected())
     assert state.step == 1 and set(got) == set(metrics) | {"gen_cost"}
     _assert_update_close(state.disc_params, state.disc_opt, states[2].disc_params, states[2].disc_opt,
-                         zero_grad, bound, 1)
+                         zero_grad, bound, 1, net.grad_rtol)
 
 
 def test_sample_matches_jax():

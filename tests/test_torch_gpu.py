@@ -230,3 +230,40 @@ def test_64px_step_on_the_card_goes_through_the_kernel(cuda):
             _, metrics = step(run.state, run.rand)
         assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
         assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+def test_deconv2d_on_the_card_equals_the_cpu(cuda):
+    """TF's SAME transposed conv on the card (fp32, TF32 off) against the
+    CPU within 1e-5 of the output's scale, at MNIST's 7 -> 14 and an even
+    size; a 2H x 2W output."""
+    from ctgan_tpu_torch.ops import deconv2d
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for h in (7, 8):
+            x, w, b = torch.randn(4, 16, h, h), torch.randn(16, 8, 5, 5) * 0.1, torch.randn(8)
+            want = deconv2d(x, w, b)
+            got = deconv2d(x.to(cuda), w.to(cuda), b.to(cuda))
+            assert got.shape == (4, 8, 2 * h, 2 * h)
+            assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize("model", ["mnist", "cifar"])
+def test_dcgan_step_on_the_card_goes_through_the_kernel(cuda, model):
+    """One iteration of the MNIST or CIFAR-10 app's step at dim 8 (5 critic
+    substeps, wgan-CT): 63 mask launches, no uniform draws; finite metrics,
+    in fp32 and bf16."""
+    from ctgan_tpu_torch.apps import ct_gan_cifar, ct_gan_mnist
+
+    app = ct_gan_mnist if model == "mnist" else ct_gan_cifar
+    run = app.setup(app.Config(DIM=8, BATCH_SIZE=4, BF16=False), cuda)
+    step = ct_gan_mnist.make_step_fn(run, None if model == "mnist" else ct_gan_cifar.to_real)
+    for policy in ("float32", "bfloat16"):
+        before, uniforms = dropout_mask.launches, philox_uniform.launches
+        with precision_policy(policy):
+            _, metrics = step(run.state, run.rand)
+        assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
+        assert all(math.isfinite(float(v)) for v in metrics.values())

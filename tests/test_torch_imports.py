@@ -26,6 +26,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_the_scan_sees_the_port():
     assert len(FILES) > 20 and all(f.is_file() for f in FILES)
+    names = {str(f.relative_to(ROOT / "ctgan_tpu_torch")) for f in FILES[:-1]}
+    assert {"models/dcgan.py", "models/fc.py", "ops/activations.py", "ops/init.py", "data/mnist.py",
+            "data/synthetic.py", "apps/ct_gan_mnist.py", "apps/ct_gan_cifar.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
