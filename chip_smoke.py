@@ -12,7 +12,9 @@ Phases, each printed with its seconds:
    flagship's three training mask shapes and its two dev-cost shapes, the
    64 px critic's three shapes, the MNIST and CIFAR-10 conv critics' three
    each and two ragged MNIST counts, fp32
-   and bf16, keep prob 0.8 and 0.5: bit for bit, keep fraction,
+   and bf16, and the semi-supervised CIFAR-10 classifier's three at batch
+   100 and at the data-dependent init's 500, fp32 (its dtype),
+   keep prob 0.8 and 0.5: bit for bit, keep fraction,
    determinism; a mask read from slot k of a seed table equals the mask of
    the int seed that slot holds; the Philox-uniform kernel against its
    plain version at the dequantisation noise's shapes (a critic batch, the
@@ -93,7 +95,30 @@ Phases, each printed with its seconds:
     dev costs, ``slope_real``, mask launches per call (63 per iteration,
     120 / 123 per test_fn), s/iter synchronised each step, peak memory;
 16. serve_dcgan: ``apps.generate --model mnist|cifar`` on those runs'
-    ``params_latest.npz``: a grid, batch 1024 in fp32 and ``--bf16``.
+    ``params_latest.npz``: a grid, batch 1024 in fp32 and ``--bf16``;
+17. cuda_vs_cpu_ssl_mnist|cifar|te (after it): one step of the
+    semi-supervised trainer at full width (MNIST batch 20, CIFAR-10 batch
+    4, the plain and the temporal-ensembling variant) on the card and the
+    CPU from the same state with the same draws, fp32 with TF32 off: the
+    losses to rtol 1e-3, each network's gradient within
+    ``FP32_GRAD_BOUND`` of the CPU's L1 mass;
+18. ssl_ref: the JAX runs' classifiers (``runs/ssl_te_r5/avg_params.npz``,
+    CIFAR-10; ``runs/ssl_mnist_full/disc_params.npz``, MNIST, which kept no
+    average) loaded into the port: their deterministic logits on the first
+    16 synthetic test images, fp32 with TF32 off, against the JAX package's
+    pinned in ``SSL_REF`` (within ``SSL_REF_BOUND``, absolute, argmax
+    equal); then the test error over the whole synthetic test set
+    beside the JAX runs' last logged ``test_err`` (0.0), a loading gate;
+19. train_ssl_mnist / train_ssl_cifar / train_ssl_te: each app's ``main`` at
+    the JAX defaults (full width, full data, batch 100), cut in depth: MNIST
+    one epoch and ``main`` again to two (a resume from ``ssl_state.npz``),
+    CIFAR-10 and temporal ensembling one epoch (CIFAR-10's resume cut for
+    time, ``run_ssl_apps``); s/step (each step
+    synchronised) and s/epoch, test error, peak memory, and the mask
+    launches of every step (18 for CIFAR-10, 15 with temporal ensembling, 0
+    for MNIST) and of the run (3 more at the data-dependent init);
+20. resume_equal_ssl: MNIST two epochs straight against train_ssl_mnist's
+    one + resume, every array of the state equal (max diff 0).
 
 The last lines are the card, the kernel record and ``{"ok": true, ...}``.
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -123,15 +148,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ctgan_tpu_torch.apps import ct_cifar_ssl as cifar_ssl_app
 from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
 from ctgan_tpu_torch.apps import ct_gan_cifar as cifar_app
 from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
 from ctgan_tpu_torch.apps import ct_gan_mnist as mnist_app
-from ctgan_tpu_torch.apps import generate
+from ctgan_tpu_torch.apps import ct_mnist_ssl as mnist_ssl_app
+from ctgan_tpu_torch.apps import generate, ssl_common
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
 from ctgan_tpu_torch.core.rng import SEED_SLOTS
-from ctgan_tpu_torch.data import DeviceSampler, synthetic_images
+from ctgan_tpu_torch.data import DeviceSampler, cifar10, mnist, synthetic_images
 from ctgan_tpu_torch.eval import TrainedScorer
 from ctgan_tpu_torch.kernels import (
     SOURCES,
@@ -143,8 +170,17 @@ from ctgan_tpu_torch.kernels import (
 from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10, seed_table
 from ctgan_tpu_torch.kernels.build import build_libraries, library_path
 from ctgan_tpu_torch.kernels.sass import disassemble, kernel_counts, op_bound_ms
-from ctgan_tpu_torch.models import dcgan, good64, resnet_cifar
-from ctgan_tpu_torch.train import AcganConfig, AcganTrainer, GanConfig, GanState, GanTrainer
+from ctgan_tpu_torch.models import classifiers, dcgan, good64, resnet_cifar
+from ctgan_tpu_torch.train import (
+    AcganConfig,
+    AcganTrainer,
+    GanConfig,
+    GanState,
+    GanTrainer,
+    SslConfig,
+    SslState,
+    make_ssl_trainer,
+)
 from ctgan_tpu_torch.train.optim import adam_mismatches
 from ctgan_tpu_torch.utils import load_checkpoint, make_grid, save_checkpoint
 
@@ -285,11 +321,37 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def ssl_mask_shapes(batch: int = 100) -> list[tuple]:
+    """NCHW shapes of the semi-supervised CIFAR-10 classifier's masks (fp32):
+    its input (keep 0.8), after C3 and after C6 (keep 0.5).  A step draws
+    each 6 times (5 with temporal ensembling); the data-dependent init once,
+    at batch 500."""
+    return [(batch, 3, 32, 32), (batch, 128, 16, 16), (batch, 256, 8, 8)]
+
+
+def ssl_all_mask_shapes() -> list[tuple]:
+    return ssl_mask_shapes(100) + ssl_mask_shapes(500)
+
+
+def ssl_masks_per_step(variant: str) -> int:
+    """Mask launches of a semi-supervised step: 3 in each classifier pass,
+    6 passes (D's 4: labelled, unlabelled, fake, the CT's second; G's 2) or
+    5 with temporal ensembling (no second pass); MNIST has no dropout."""
+    return {"mnist": 0, "cifar": 18, "te": 15}[variant]
+
+
+def _mask_cases() -> list[tuple[tuple, tuple]]:
+    """Every mask shape held bit for bit, with its dtypes."""
+    both = (torch.float32, torch.bfloat16)
+    return ([(shape, both) for shape in all_mask_shapes() + RAGGED_MASK_SHAPES]
+            + [(shape, (torch.float32,)) for shape in ssl_all_mask_shapes()])
+
+
 def _check_masks(device, seed: int) -> float:
     max_err = 0.0
-    for shape in all_mask_shapes() + RAGGED_MASK_SHAPES:
+    for shape, dtypes in _mask_cases():
         n = math.prod(shape)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             for kp in (0.8, 0.5):
                 got = dropout_mask(seed, shape, kp, dtype, device)
                 torch.cuda.synchronize()
@@ -356,10 +418,11 @@ def all_mask_shapes() -> list[tuple]:
 
 def launch_shapes() -> list[tuple[str, tuple, torch.dtype]]:
     """Every (kernel, shape, dtype) the main paths launch: the mask shapes
-    (``all_mask_shapes``) in fp32 and bf16, the two dequantisation
-    shapes."""
+    (``all_mask_shapes``) in fp32 and bf16, the semi-supervised ones in
+    fp32, the two dequantisation shapes."""
     out = [("dropout_mask", shape, dtype) for shape in all_mask_shapes()
            for dtype in (torch.float32, torch.bfloat16)]
+    out += [("dropout_mask", shape, torch.float32) for shape in ssl_all_mask_shapes()]
     return out + [("philox_uniform", shape, torch.float32) for shape in dequant_shapes()]
 
 
@@ -1644,6 +1707,349 @@ def run_dcgan_apps(device, out_dir: str, scorer: Path | None = None) -> dict:
     return {"runs": runs, "serve": serve}
 
 
+# ---------------------------------------------------------------- semi-supervised classifiers
+
+SSL_ARCH = {"mnist": "mnist", "cifar": "cifar", "te": "cifar"}
+SSL_BATCH = 100
+SSL_WARMUP_STEPS = 5  # left out of s/step: cuDNN and the allocator warm up
+# The JAX package's deterministic logits of the JAX runs' classifiers on the first 16 synthetic test
+# images (CIFAR-10: runs/ssl_te_r5/avg_params.npz; MNIST: runs/ssl_mnist_full/disc_params.npz), fp32 on
+# the CPU: their mean and standard deviation, 8 elements at np.linspace(0, size - 1, 8) of the flat
+# [16, 10] logits, their largest magnitude and each image's argmax.  Recompute with
+#   python -m pytest tests/test_torch_chip_ssl.py -k pinned
+SSL_REF = {
+    "cifar": {"mean": -16.697296666353942, "std": 12.41567925434824,
+              "at": [-24.759723663330078, -7.057608604431152, -23.34950065612793, -20.657615661621094,
+                     -21.361427307128906, -25.322324752807617, -22.051618576049805, -17.97441864013672],
+              "scale": 47.56877136230469, "argmax": [7, 5, 5, 1, 8, 8, 4, 6, 0, 9, 4, 4, 2, 5, 9, 6]},
+    "mnist": {"mean": -44.487477131187916, "std": 46.661352960935496,
+              "at": [-102.5860366821289, 33.49204635620117, -18.651689529418945, 27.763343811035156,
+                     -96.77287292480469, -110.4996566772461, -42.83403778076172, -9.382884979248047],
+              "scale": 189.65830993652344, "argmax": [6, 6, 2, 9, 6, 2, 8, 1, 7, 6, 3, 6, 9, 1, 9, 7]},
+}
+SSL_REF_PARAMS = {"cifar": ROOT / "runs" / "ssl_te_r5" / "avg_params.npz",
+                  "mnist": ROOT / "runs" / "ssl_mnist_full" / "disc_params.npz"}
+# Each pinned number within 1e-4 in absolute terms, the gate DCGAN_REF applies.
+SSL_REF_BOUND = 1e-4
+SSL_LOGGED_TEST_ERR = 0.0  # the last test_err both JAX runs logged (log.pkl; epochs 1000 and 244)
+SSL_LOADING_GATE = 0.01    # a wrong layout or a wrong file scores about 0.9
+
+
+def _ssl_nets(arch: str):
+    if arch == "mnist":
+        return classifiers.mnist_ssl_classifier, classifiers.mnist_ssl_generator
+    return classifiers.cifar_ssl_classifier, classifiers.cifar_ssl_generator
+
+
+def _ssl_trainer(variant: str):
+    """The trainer at the app's defaults (lr, CT weight) of ``variant``."""
+    arch = SSL_ARCH[variant]
+    cfg = mnist_ssl_app.Config() if arch == "mnist" else cifar_ssl_app.Config()
+    return make_ssl_trainer(*_ssl_nets(arch), SslConfig(variant=variant, lr=cfg.learning_rate, lambda_2=cfg.LAMBDA_2))
+
+
+def _ssl_inputs(variant: str, batch: int, seed: int):
+    """A step's seeded inputs: labelled, unlabelled and second unlabelled
+    batches in the app's range, labels, and for ``te`` targets."""
+    data = np.random.default_rng(seed)
+    shape, low = ((784,), 0.0) if variant == "mnist" else ((3, 32, 32), -0.5)
+    x = lambda: torch.from_numpy(data.uniform(low, low + 1.0, (batch, *shape)).astype(np.float32))
+    x_lab, labels, x_unl, x_unl2 = x(), torch.from_numpy(data.integers(0, 10, batch)), x(), x()
+    targets = None
+    if variant == "te":
+        targets = (torch.softmax(torch.from_numpy(data.normal(size=(batch, 10)).astype(np.float32)), 1),
+                   torch.from_numpy(data.normal(0.0, 0.1, (batch, ssl_common.TE_FEATURES)).astype(np.float32)))
+    return x_lab, labels, x_unl, x_unl2, targets
+
+
+def phase_cuda_vs_cpu_ssl(device, *, variant: str = "cifar", batch: int = 4, seed: int = 0) -> dict:
+    """One semi-supervised step at full width on ``device`` and on the CPU
+    from the same fresh state (``classifiers.init_params``) with the same
+    inputs and draws, fp32 with TF32 off: each metric to rtol 1e-3, and for
+    D and G the gradient (AdamTheano's first moment at t = 1 holds it:
+    ``m / (1 - mom1)``) within ``FP32_GRAD_BOUND`` of the CPU gradient's L1
+    mass, the elements stepping the other way carrying at most
+    ``FP32_FLIP_BOUND`` of it.  Returns the largest shares and param diff."""
+    trainer = _ssl_trainer(variant)
+    params = from_jax_params(classifiers.init_params(SSL_ARCH[variant], seed))
+    inputs = _ssl_inputs(variant, batch, seed)
+
+    def run(dev):
+        disc, gen, _ = split_params({k: v.to(dev, copy=True) for k, v in params.items()}, "Classifier", "Generator")
+        state = trainer.init_state(disc, gen)
+        x_lab, labels, x_unl, x_unl2, targets = (
+            None if t is None else tuple(a.to(dev) for a in t) if isinstance(t, tuple) else t.to(dev) for t in inputs)
+        metrics, _, _ = trainer.step(state, x_lab, labels, x_unl, x_unl2, targets, Randomness(seed, dev))
+        return state, metrics
+
+    with precision_policy("float32"), _no_tf32():
+        dev_state, got = run(device)
+        cpu_state, want = run("cpu")
+    failures, report = [], {"diff": 0.0}
+    for k, w in want.items():
+        if not math.isclose(float(got[k]), float(w), rel_tol=1e-3, abs_tol=1e-5):
+            failures.append(f"{k} {float(got[k])} on {device} vs {float(w)} on cpu")
+    mom1 = trainer.cfg.mom1
+    for net, field, opt in (("D", "disc_params", "disc_opt"), ("G", "gen_params", "gen_opt")):
+        mass = grad_l1 = flipped = 0.0
+        for k, start in params.items():
+            if k not in getattr(cpu_state, field):
+                continue
+            g_dev = getattr(dev_state, opt)["m"][k].double().cpu().numpy() / (1 - mom1)
+            g_cpu = getattr(cpu_state, opt)["m"][k].double().numpy() / (1 - mom1)
+            p_dev = getattr(dev_state, field)[k].detach().cpu().numpy()
+            p_cpu = getattr(cpu_state, field)[k].detach().numpy()
+            report["diff"] = max(report["diff"], float(np.abs(p_dev - p_cpu).max()))
+            other_way = np.sign(p_dev - start.numpy()) != np.sign(p_cpu - start.numpy())
+            mass += float(np.abs(g_cpu).sum())
+            grad_l1 += float(np.abs(g_dev - g_cpu).sum())
+            flipped += float(np.abs(g_cpu[other_way]).sum())
+        report[f"{net}_grad_l1"], report[f"{net}_flipped_mass"] = grad_l1 / mass, flipped / mass
+        if grad_l1 > FP32_GRAD_BOUND * mass:
+            failures.append(f"{net}: gradients {grad_l1 / mass:.3g} of the CPU's L1 mass apart (> {FP32_GRAD_BOUND})")
+        if flipped > FP32_FLIP_BOUND * mass:
+            failures.append(f"{net}: elements carrying {flipped / mass:.3g} of the gradient's mass stepped the other "
+                            f"way (> {FP32_FLIP_BOUND})")
+    line = (f"ssl {variant} batch {batch}: {device} vs cpu in fp32 (TF32 off), one step: max param diff "
+            f"{report['diff']:.3g}; gradients apart by {report['D_grad_l1']:.3g} (D) and {report['G_grad_l1']:.3g} (G) "
+            f"of the CPU's L1 mass, {report['D_flipped_mass']:.3g} and {report['G_flipped_mass']:.3g} stepping the "
+            f"other way; losses {json.dumps({k: float(v) for k, v in got.items()})}")
+    print(line)
+    if failures:
+        raise AssertionError(f"{line}\n" + "\n".join(failures))
+    return report
+
+
+def ssl_test_set(arch: str) -> tuple[np.ndarray, np.ndarray]:
+    """The synthetic test split as the app reads it: MNIST flat in [0, 1],
+    CIFAR-10 NCHW in [-0.5, 0.5]."""
+    if arch == "mnist":
+        return mnist.load_arrays()["test"]
+    return cifar10.load_normalized(None, "test")
+
+
+def ssl_ref_summary(logits: np.ndarray) -> dict:
+    """The numbers ``SSL_REF`` pins, of ``[16, 10]`` logits."""
+    flat = np.asarray(logits, np.float64).reshape(-1)
+    idx = np.linspace(0, flat.size - 1, 8).astype(int)
+    return {"mean": float(flat.mean()), "std": float(flat.std()), "at": [float(v) for v in flat[idx]],
+            "scale": float(np.abs(flat).max()), "argmax": [int(v) for v in np.asarray(logits).argmax(1)]}
+
+
+def _ssl_ref_params(arch: str, device) -> dict:
+    return {k: v.to(device) for k, v in from_jax_params(load_checkpoint(str(SSL_REF_PARAMS[arch]))).items()}
+
+
+def ssl_ref_outputs(arch: str, device) -> dict:
+    """``ssl_ref_summary`` of the port's deterministic logits of the JAX
+    run's classifier on the first 16 test images, under the precision in
+    force."""
+    x = torch.from_numpy(ssl_test_set(arch)[0][:16]).to(device)
+    with torch.no_grad():
+        params = classifiers.with_applied_weights(_ssl_ref_params(arch, device))
+        logits = _ssl_nets(arch)[0](params, x, None, deterministic=True).logits
+    return ssl_ref_summary(logits.float().cpu().numpy())
+
+
+def ssl_ref_gap(got: dict, want: dict) -> float:
+    """The largest absolute gap of the pinned numbers; inf if an argmax
+    differs."""
+    if got["argmax"] != want["argmax"]:
+        return math.inf
+    return _largest_gap({k: got[k] for k in ("mean", "std", "at")},
+                        {k: want[k] for k in ("mean", "std", "at")})
+
+
+def phase_ssl_ref(device, n_test: int | None = None) -> dict:
+    """The JAX runs' classifiers on the card: the pinned logits (fp32, TF32
+    off) within ``SSL_REF_BOUND``, argmax equal; then, as the
+    app runs (TF32 convs), the trainer's ``test_error`` with those params as
+    the averaged ones over the whole synthetic test set, in batches of 100,
+    beside the JAX runs' last logged ``test_err``: a loading gate.  No mask
+    is drawn.  ``n_test`` cuts the test set (a CPU rehearsal)."""
+    before = dropout_mask.launches
+    out = {}
+    for arch in SSL_REF:
+        sha = _sha256(SSL_REF_PARAMS[arch])
+        with precision_policy("float32"), _no_tf32():
+            gap = ssl_ref_gap(ssl_ref_outputs(arch, device), SSL_REF[arch])
+        x, y = (torch.from_numpy(a[:n_test]).to(device) for a in ssl_test_set(arch))
+        state = SslState({}, {}, {}, {}, _ssl_ref_params(arch, device))
+        trainer = _ssl_trainer(arch)
+        with precision_policy("float32"):
+            errs = [trainer.test_error(state, x[i:i + SSL_BATCH], y[i:i + SSL_BATCH])
+                    for i in range(0, len(x) - SSL_BATCH + 1, SSL_BATCH)]
+        err = float(torch.stack(errs).mean())
+        out[arch] = {"gap": gap, "test_err": err, "sha256": sha}
+        print(f"ssl_ref {arch}: {SSL_REF_PARAMS[arch].relative_to(ROOT)} (sha256 {sha}) on {device}: pinned logits "
+              f"(fp32, TF32 off) within {gap:.3g} of the JAX package's (largest magnitude {SSL_REF[arch]['scale']:.2f}) "
+              f"(bound {SSL_REF_BOUND}), argmax equal; test error over {len(y)} synthetic test images {err:.5f} "
+              f"(loading gate {SSL_LOADING_GATE}; the JAX run logged {SSL_LOGGED_TEST_ERR})")
+        if not gap <= SSL_REF_BOUND:
+            raise AssertionError(f"ssl_ref {arch}: the port's logits differ from the JAX package's by {gap}")
+        if not err <= SSL_LOADING_GATE:
+            raise AssertionError(f"ssl_ref {arch}: test error {err} with the JAX run's params: loading is wrong")
+    if dropout_mask.launches != before:
+        raise AssertionError("ssl_ref drew a mask in a deterministic pass")
+    return out
+
+
+def _run_ssl_main(module, cfg, device) -> tuple:
+    """``module.main`` (a semi-supervised app) with each step timed between
+    two synchronisations and its mask launches counted, stdout kept.
+    Returns (state, records, mask launches of the run, per-step launches,
+    step seconds, seconds from the first step to the last epoch's record,
+    stdout, seconds)."""
+    make_step_fn, step_s, per_step, first = ssl_common.make_step_fn, [], [], []
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+
+    def timed(ssl_app):
+        step = make_step_fn(ssl_app)
+
+        def step_fn(*args):
+            sync()
+            if not first:
+                first.append(time.time())  # the records' wall clock
+            before, t0 = dropout_mask.launches, time.perf_counter()
+            out = step(*args)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(dropout_mask.launches - before)
+            return out
+
+        return step_fn
+
+    dropout_mask.launches = philox_uniform.launches = 0
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    ssl_common.make_step_fn = timed
+    try:
+        with contextlib.redirect_stdout(tee):
+            state, records = module.main(cfg=cfg, device=device)
+    finally:
+        ssl_common.make_step_fn = make_step_fn
+    epochs_s = records[-1]["wall_time"] - first[0] if first else 0.0
+    return (state, records, dropout_mask.launches, per_step, step_s, epochs_s, tee.buf.getvalue(),
+            time.perf_counter() - t0)
+
+
+def phase_train_ssl(device, module, cfg, *, start: int = 0) -> dict:
+    """One ``main`` of a semi-supervised app in ``cfg.out_dir`` (fresh, or
+    resuming at epoch ``start``): the resume line, every step's mask
+    launches (``ssl_masks_per_step``) and the run's (3 more at a fresh or
+    resumed run's data-dependent init, batch 500), the files, one record
+    per epoch with finite metrics and a test error, the state's step and
+    epoch; s/step over the steps after ``SSL_WARMUP_STEPS`` (synchronised),
+    s/epoch, peak device memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    is_mnist = isinstance(cfg, mnist_ssl_app.Config)
+    variant = "mnist" if is_mnist else "te" if cfg.temporal_ensembling else "cifar"
+    state, records, launches, per_step, step_s, epochs_s, stdout, seconds = _run_ssl_main(module, cfg, device)
+    out = Path(cfg.out_dir)
+    if start:
+        want = f"resumed from {out / 'ssl_state.npz'} at epoch {start}"
+        if want not in stdout:
+            raise AssertionError(f"no line {want!r} in the resumed run's output")
+    per = ssl_masks_per_step(variant) if device.type == "cuda" else 0
+    init = 3 if per else 0
+    steps_per_epoch = len(per_step) // max(cfg.epochs - start, 1)
+    if set(per_step) - {per} or launches != len(per_step) * per + init:
+        raise AssertionError(f"mask launches {launches} ({sorted(set(per_step))} per step), expected {per} per step "
+                             f"and {init} at the init")
+    files = ["disc_params.npz", "gen_params.npz", "avg_params.npz", "ssl_state.npz", "log.pkl", "log.ndjson"]
+    missing = [f for f in files if not (out / f).is_file()]
+    if missing:
+        raise AssertionError(f"missing in out_dir: {missing}")
+    saved = load_checkpoint(str(out / "ssl_state.npz"))
+    n_steps = cfg.epochs * steps_per_epoch
+    if int(saved["epoch"]) != cfg.epochs - 1 or state.step != n_steps or int(saved["state"]["step"]) != n_steps:
+        raise AssertionError(f"run ended at step {state.step}, saved epoch {saved['epoch']}")
+    if [r["iteration"] for r in records] != list(range(start + 1, cfg.epochs + 1)):
+        raise AssertionError(f"records of epochs {[r['iteration'] for r in records]}")
+    for r in records:
+        if not all(math.isfinite(v) for k, v in r.items() if k != "iteration") or not 0 <= r["test_err"] <= 1:
+            raise AssertionError(f"epoch {r['iteration']}: {r}")
+    timed = step_s[SSL_WARMUP_STEPS:] if start == 0 and len(step_s) > SSL_WARMUP_STEPS else step_s
+    return dict(launches=launches, uniform_launches=0, per_step=per, steps=len(per_step),
+                s_per_step=float(np.mean(timed)), s_per_step_min=float(min(timed)),
+                s_per_epoch=epochs_s / max(cfg.epochs - start, 1), test_err=records[-1]["test_err"],
+                peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+                seconds=seconds, last=records[-1])
+
+
+def phase_resume_equal_ssl(device, resumed_dir: str, cfg) -> float:
+    """``main`` of the MNIST app for ``cfg.epochs`` straight in a fresh
+    directory, against the run in ``resumed_dir`` that stopped after one
+    epoch and resumed: every array of the two ``ssl_state.npz`` states must
+    be equal.  Returns the largest difference."""
+    mnist_ssl_app.main(cfg=cfg, device=device)
+    got = load_checkpoint(str(Path(resumed_dir) / "ssl_state.npz"))
+    want = load_checkpoint(str(Path(cfg.out_dir) / "ssl_state.npz"))
+    leaves = lambda tree: ([a for v in tree.values() for a in leaves(v)] if isinstance(tree, dict)
+                           else [np.asarray(tree, np.float64)])
+    got_leaves, want_leaves = leaves(got["state"]), leaves(want["state"])
+    if len(got_leaves) != len(want_leaves) or got["epoch"] != want["epoch"]:
+        raise AssertionError("the resumed and the uninterrupted states differ in structure")
+    diff = max(float(np.abs(a - b).max()) if a.size else 0.0 for a, b in zip(got_leaves, want_leaves))
+    print(f"resume_equal_ssl on {device}: MNIST at full width, 1 + resume to {cfg.epochs} epochs vs {cfg.epochs} "
+          f"straight: max diff {diff:.3g} over {len(want_leaves)} arrays (params, averages, Adam moments, t, step)")
+    if diff != 0:
+        raise AssertionError(f"resumed SSL run differs from the uninterrupted one by {diff}")
+    return diff
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+
+
+def _ssl_line(name: str, out: dict) -> str:
+    peak = "not measured" if out["peak_bytes"] is None else f"{out['peak_bytes'] / 2**30:.3f} GiB"
+    return (f"{name}: {out['s_per_step']:.5f} s/step (min {out['s_per_step_min']:.5f}; each step synchronised), "
+            f"{out['s_per_epoch']:.3f} s/epoch ({out['steps']} steps), {out['seconds']:.2f} s for main, peak {peak}, "
+            f"mask launches {out['launches']} ({out['per_step']} per step), test_err {out['test_err']:.5f}, "
+            f"last {json.dumps(out['last'])}")
+
+
+def run_ssl_apps(device, out_dir: str, *, cifar_resume: bool = False) -> dict:
+    """The semi-supervised apps at the JAX defaults, cut in depth: MNIST
+    one epoch, ``main`` again to two (a resume), and two straight against
+    it (``resume_equal_ssl``), cuDNN deterministic; CIFAR-10 one epoch (and,
+    with ``cifar_resume``, a resume to two: cut by default to keep the
+    script under 4 minutes, since this resume took 22 s of 226 on an H100;
+    the CPU tests hold the CIFAR-10 resume exact); temporal ensembling one
+    epoch."""
+    runs = {}
+    mnist_cfg = mnist_ssl_app.Config(epochs=1, out_dir=f"{out_dir}/mnist")
+    print(f"train_ssl_mnist: cut for time: epochs 1, resumed to 2 (of {mnist_ssl_app.Config().epochs}); batch "
+          f"{mnist_cfg.batch_size}, count {mnist_cfg.count}, lr {mnist_cfg.learning_rate} (the defaults), fp32")
+    with _cudnn_deterministic():
+        runs["train_ssl_mnist"] = _phase("train_ssl_mnist", phase_train_ssl, device, mnist_ssl_app, mnist_cfg)
+        runs["train_ssl_mnist_resume"] = _phase("train_ssl_mnist_resume", phase_train_ssl, device, mnist_ssl_app,
+                                                dataclasses.replace(mnist_cfg, epochs=2), start=1)
+        diff = _phase("resume_equal_ssl", phase_resume_equal_ssl, device, mnist_cfg.out_dir,
+                      dataclasses.replace(mnist_cfg, epochs=2, out_dir=f"{out_dir}/mnist_straight"))
+    cifar_cfg = cifar_ssl_app.Config(epochs=1, out_dir=f"{out_dir}/cifar")
+    print(f"train_ssl_cifar: cut for time: epochs 1{', resumed to 2' if cifar_resume else ', no resume'} (of "
+          f"{cifar_ssl_app.Config().epochs}); batch {cifar_cfg.batch_size}, count {cifar_cfg.count}, "
+          f"lr {cifar_cfg.learning_rate} "
+          f"(the defaults), fp32 (TF32 convs)")
+    runs["train_ssl_cifar"] = _phase("train_ssl_cifar", phase_train_ssl, device, cifar_ssl_app, cifar_cfg)
+    if cifar_resume:
+        runs["train_ssl_cifar_resume"] = _phase("train_ssl_cifar_resume", phase_train_ssl, device, cifar_ssl_app,
+                                                dataclasses.replace(cifar_cfg, epochs=2), start=1)
+    te_cfg = cifar_ssl_app.Config(epochs=1, temporal_ensembling=True, out_dir=f"{out_dir}/te")
+    runs["train_ssl_te"] = _phase("train_ssl_te", phase_train_ssl, device, cifar_ssl_app, te_cfg)
+    return {"runs": runs, "resume_equal": diff}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1665,6 +2071,9 @@ def main() -> int:
     dcgan_vs_cpu = {p: _phase(f"cuda_vs_cpu_dcgan_{p}", phase_cuda_vs_cpu_dcgan, device, precision=p)
                     for p in ("float32", "bfloat16")}
     dcgan_ref = _phase("dcgan_ref", phase_dcgan_ref, device)
+    ssl_vs_cpu = {v: _phase(f"cuda_vs_cpu_ssl_{v}", phase_cuda_vs_cpu_ssl, device, variant=v,
+                            batch=20 if v == "mnist" else 4) for v in ("mnist", "cifar", "te")}
+    ssl_ref = _phase("ssl_ref", phase_ssl_ref, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg = app.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, INCEPTION_FREQUENCY=10,
                          inception_samples=5000, out_dir=f"{out_dir}/bf16")
@@ -1696,9 +2105,11 @@ def main() -> int:
                      for p in ("float32", "bfloat16")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_good64_") as out_dir:
         good64_ckpt = _phase("good64_checkpoint", phase_good64_checkpoint, device, out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_") as out_dir:
+        ssl_runs = run_ssl_apps(device, out_dir)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
             "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
-            "train64_fp32": train64_fp32, **dcgan_runs["runs"]}
+            "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"]}
     launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
                 "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
     print(f"train: {json.dumps(dataclasses.asdict(cfg) | {'out_dir': '<tmp>'})}")
@@ -1724,6 +2135,11 @@ def main() -> int:
     for name, run in dcgan_runs["runs"].items():
         print(_dcgan_line(name, run))
     print(f"serve mnist, cifar: {json.dumps(dcgan_runs['serve'])}")
+    print(f"cuda_vs_cpu_ssl: {json.dumps(ssl_vs_cpu)}")
+    print(f"ssl_ref: {json.dumps(ssl_ref)}")
+    for name, run in ssl_runs["runs"].items():
+        print(_ssl_line(name, run))
+    print(f"resume_equal_ssl: max diff {ssl_runs['resume_equal']}")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
         print(f"{name} launches on the main path: "
               + " + ".join(f"{k} {r[key]}" for k, r in runs.items()) + f" = {launches[name]}")

@@ -2,21 +2,27 @@
 
 The JAX package stores conv filters as HWIO and linear weights as
 ``[in, out]``; the port computes with OIHW filters and ``[out, in]``
-weights.  Both keep the JAX names.  Every other array (biases, norm
-offsets and scales) is the same in both.  A round trip is exact.
+weights.  Both keep the JAX names.  A weight-normed layer's 4-D ``.W``
+is a filter like ``.Filters`` (a transposed conv's HWOI becomes ``[in, out,
+kH, kW]``), its 2-D one a linear weight.  Every other array (biases, norm
+offsets and scales, weight-norm gains) is the same in both.  A round trip
+is exact.
 
 :func:`state_to_jax` and :func:`state_from_jax` carry a whole trainer state
 (params, optimiser state, the step) across the same boundary, as the plain
 dict of the fields of the JAX package's ``AcganState``
 (``ctgan_tpu/train/trainer_acgan.py:80-85``) or ``GANState``
-(``ctgan_tpu/train/trainer_gan.py:67-72``), which have the same fields: its
-train loop saves ``state._asdict()`` and restores ``type(state)(**blob["state"])``.
+(``ctgan_tpu/train/trainer_gan.py:67-72``), which have the same fields, or
+``SslState`` (``ctgan_tpu/train/trainer_semisup.py:48-54``, with
+``avg_params``): the JAX package saves ``state._asdict()`` and restores
+``type(state)(**blob["state"])``.
 An optimiser state is a dict of per-parameter moment dicts (Adam's ``m``
 and ``v``, RMSProp's ``ms`` and ``mom``) and scalars (Adam's ``t``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 
 from .train.trainer_acgan import AcganState
 from .train.trainer_gan import GanState
+from .train.trainer_semisup import SslState
 from .utils.checkpoint import device_get
 
 __all__ = ["from_jax_params", "to_jax_params", "state_to_jax", "state_from_jax"]
@@ -35,9 +42,10 @@ def _kind(name: str, ndim: int) -> str:
             raise ValueError(f"{name}: only 2-D conv filters are bridged, got ndim={ndim}")
         return "filters"
     if name.endswith(".W"):
-        if ndim != 2:
-            raise ValueError(f"{name}: linear weights must be 2-D, got ndim={ndim}")
-        return "weight"
+        # a weight-normed conv's or transposed conv's W is a 4-D filter
+        if ndim not in (2, 4):
+            raise ValueError(f"{name}: weights must be 2-D (linear) or 4-D (conv), got ndim={ndim}")
+        return "weight" if ndim == 2 else "filters"
     return "other"
 
 
@@ -80,35 +88,45 @@ def _opt_to_jax(opt: dict) -> dict:
             for k, v in opt.items()}
 
 
-def state_to_jax(state: AcganState | GanState) -> dict:
+def state_to_jax(state: AcganState | GanState | SslState) -> dict:
     """The JAX package's state fields as NumPy arrays in its layouts:
-    params and optimiser moment dicts, scalars such as Adam's ``t`` as 0-d
-    float32, ``step`` as a 0-d int32, and nothing else."""
-    return device_get({
-        "gen_params": _to_jax_layout(state.gen_params),
-        "disc_params": _to_jax_layout(state.disc_params),
-        "gen_opt": _opt_to_jax(state.gen_opt),
-        "disc_opt": _opt_to_jax(state.disc_opt),
-        "step": np.array(state.step, np.int32),
-    })
+    params (``*_params``) and optimiser moment dicts (``*_opt``), scalars
+    such as Adam's ``t`` as 0-d float32, ``step`` as a 0-d int32, and
+    nothing else."""
+    out = {}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if f.name == "step":
+            out[f.name] = np.array(value, np.int32)
+        elif f.name.endswith("_opt"):
+            out[f.name] = _opt_to_jax(value)
+        else:
+            out[f.name] = _to_jax_layout(value)
+    return device_get(out)
 
 
 def _tensors(params: Mapping[str, np.ndarray], device, requires_grad: bool = False) -> dict:
     return {k: v.to(device).requires_grad_(requires_grad) for k, v in from_jax_params(params).items()}
 
 
-def state_from_jax(blob_state: Mapping, device, cls: type = AcganState) -> AcganState | GanState:
-    """A ``cls`` (``AcganState`` or ``GanState``) on ``device`` from the
-    JAX-layout dict of :func:`state_to_jax` or of a JAX checkpoint's
-    ``state``.  Params require grad, as the trainers' ``init_state`` makes
-    them."""
+def state_from_jax(blob_state: Mapping, device,
+                   cls: type = AcganState) -> AcganState | GanState | SslState:
+    """A ``cls`` (``AcganState``, ``GanState`` or ``SslState``) on
+    ``device`` from the JAX-layout dict of :func:`state_to_jax` or of a JAX
+    checkpoint's ``state``.  G's and D's params require grad, as the
+    trainers' ``init_state`` makes them (an ``SslState``'s ``avg_params``
+    do not)."""
     def opt(o):
         return {k: _tensors(v, device) if isinstance(v, Mapping) else float(np.asarray(v))
                 for k, v in o.items()}
 
-    return cls(
-        _tensors(blob_state["gen_params"], device, True),
-        _tensors(blob_state["disc_params"], device, True),
-        opt(blob_state["gen_opt"]), opt(blob_state["disc_opt"]),
-        int(np.asarray(blob_state["step"])),
-    )
+    fields = {}
+    for f in dataclasses.fields(cls):
+        value = blob_state[f.name]
+        if f.name == "step":
+            fields[f.name] = int(np.asarray(value))
+        elif f.name.endswith("_opt"):
+            fields[f.name] = opt(value)
+        else:
+            fields[f.name] = _tensors(value, device, f.name in ("gen_params", "disc_params"))
+    return cls(**fields)

@@ -3,7 +3,8 @@
 The JAX package derives every random draw from ``jax.random`` keys
 (``ctgan_tpu/core/rng.py``); PyTorch's generators cannot give the same
 numbers.  So the port asks one object for each draw: latent noise, fake
-labels, dequantisation noise, gradient-penalty alphas and dropout masks.
+labels, dequantisation noise, gradient-penalty alphas, dropout masks, and
+the semi-supervised apps' Gaussian noise, uniform latents and crops.
 :class:`Randomness` is the default; a parity test passes an object with the
 same methods that hands out the JAX package's own draws.
 
@@ -34,16 +35,20 @@ __all__ = ["Randomness", "SEED_SLOTS"]
 
 # Philox draws a provider can hand out.  A flagship iteration takes 38 (33
 # masks and 5 dequantisation draws), its dev cost 7; a 64 px iteration 63
-# masks (3 in the G substep, 12 in each of 5 critic substeps).
+# masks (3 in the G substep, 12 in each of 5 critic substeps); a
+# semi-supervised CIFAR-10 step 18.
 SEED_SLOTS = 128
 
 
 class Randomness:
     """Seeded draws for a run on ``device``, the same on every device.
 
-    * Latent noise, labels, GP alphas and per-image flips (small) come
-      from a CPU ``torch.Generator`` and go to ``device`` in one pinned,
-      non-blocking copy each.
+    * Latent noise, labels, GP alphas, per-image flips and crop offsets
+      (small), and the semi-supervised MNIST classifier's Gaussian noise
+      (1.82 M normals per step at its defaults), come from a CPU
+      ``torch.Generator`` and go to ``device`` in one pinned, non-blocking
+      copy each: a Box-Muller draw on the card would not give the CPU's
+      bits.
     * Dequantisation noise (a uniform per pixel, the large draw) and dropout
       masks come from Philox keyed on a 32-bit seed of a host NumPy
       generator: the CUDA kernels on the card, their plain versions on the
@@ -91,6 +96,17 @@ class Randomness:
     def noise(self, n: int, dim: int) -> torch.Tensor:
         return self._to(torch.randn(n, dim, generator=self._gen))
 
+    def normal(self, shape) -> torch.Tensor:
+        """Standard normals of ``shape`` (``ops.noise.gaussian_noise``),
+        drawn on the card's behalf straight into pinned memory (the same
+        numbers, one host copy fewer)."""
+        pinned = self.device.type == "cuda"
+        return self._to(torch.randn(tuple(shape), generator=self._gen, pin_memory=pinned))
+
+    def uniform(self, n: int, dim: int) -> torch.Tensor:
+        """U[0, 1) latents, ``[n, dim]`` (the semi-supervised generators)."""
+        return self._to(torch.rand(n, dim, generator=self._gen))
+
     def labels(self, n: int, n_labels: int) -> torch.Tensor:
         return self._to(torch.randint(0, n_labels, (n,), generator=self._gen))
 
@@ -106,6 +122,11 @@ class Randomness:
         """Whether to flip each of ``n`` images left to right, each with
         probability 1/2 (``ctgan_tpu/data/augment.py:22-30``)."""
         return self._to(torch.rand(n, generator=self._gen) < 0.5)
+
+    def crop_offsets(self, n: int, pad: int) -> torch.Tensor:
+        """``[n, 2]`` (row, column) crop offsets, each uniform over
+        ``[0, 2 * pad]`` (``ctgan_tpu/data/augment.py:33-56``)."""
+        return self._to(torch.randint(0, 2 * pad + 1, (n, 2), generator=self._gen))
 
     def dropout_mask(self, shape, keep_prob, dtype: torch.dtype, device) -> torch.Tensor:
         slot = self.take_slot()

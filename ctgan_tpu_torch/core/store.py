@@ -44,23 +44,39 @@ class ParamInit:
         self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
 
     def deconv(self, name: str, input_dim: int, output_dim: int, filter_size: int,
-               *, he_init: bool = True, stride: int = 2) -> None:
+               *, he_init: bool = True, stride: int = 2, biases: bool = True) -> None:
         """A transposed conv: an HWOI ``[k, k, out, in]`` filter and biases."""
         stdev = conv_filter_stdev(input_dim, output_dim, filter_size, stride, he_init, transposed=True)
         self.add(name + ".Filters", lambda: uniform_stdev(
             self.rng, stdev, (filter_size, filter_size, output_dim, input_dim)))
-        self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
+        if biases:
+            self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
 
-    def linear(self, name: str, input_dim: int, output_dim: int, initialization: str | None = None) -> None:
+    def linear(self, name: str, input_dim: int, output_dim: int, initialization: str | None = None,
+               *, biases: bool = True) -> None:
         self.add(name + ".W", lambda: linear_initializer(self.rng, input_dim, output_dim, initialization))
-        self.add(name + ".b", lambda: np.zeros(output_dim, "float32"))
+        if biases:
+            self.add(name + ".b", lambda: np.zeros(output_dim, "float32"))
 
-    def norm(self, name: str, channels: int, n_labels: int | None = None) -> None:
+    def norm(self, name: str, channels: int, n_labels: int | None = None, *, scale: bool = True) -> None:
         """Offset and scale of a batch or layer norm; per-label tables when
-        ``n_labels`` is given (the conditional norms)."""
+        ``n_labels`` is given (the conditional norms); the offset alone
+        without ``scale``."""
         shape = (channels,) if n_labels is None else (n_labels, channels)
         self.add(name + ".offset", lambda: np.zeros(shape, "float32"))
-        self.add(name + ".scale", lambda: np.ones(shape, "float32"))
+        if scale:
+            self.add(name + ".scale", lambda: np.ones(shape, "float32"))
+
+    def weightnormed(self, name: str, shape: tuple, output_dim: int, w_stdev: float = 0.05,
+                     *, g_and_b: bool = True) -> None:
+        """A weight-normed layer's ``W ~ Normal(0, w_stdev)`` of the JAX
+        ``shape`` (``[in, out]``, HWIO, or a transposed conv's HWOI), then
+        its ``g`` (ones) and ``b`` (zeros), unless ``g_and_b`` is off (the
+        L2-normalised dense layer)."""
+        self.add(name + ".W", lambda: self.rng.normal(0.0, w_stdev, shape).astype("float32"))
+        if g_and_b:
+            self.add(name + ".g", lambda: np.ones(output_dim, "float32"))
+            self.add(name + ".b", lambda: np.zeros(output_dim, "float32"))
 
 
 def split_params(params: Mapping, *names: str) -> tuple[dict, ...]:

@@ -1,4 +1,5 @@
-"""CIFAR-10 (counterpart of ``load_arrays`` and ``load`` in ``ctgan_tpu/data/cifar10.py:34-63``).
+"""CIFAR-10 (counterpart of ``load_arrays``, ``load`` and ``load_normalized``
+in ``ctgan_tpu/data/cifar10.py:34-71``).
 
 Reads the python-version batch files when ``data_dir`` holds them, else
 makes the deterministic synthetic set.  Flat ``[N, 3072]`` uint8 in
@@ -21,7 +22,7 @@ import numpy as np
 from .iterator import epoch_batches
 from .synthetic import synthetic_cifar10
 
-__all__ = ["load", "load_arrays", "load_train"]
+__all__ = ["load", "load_arrays", "load_normalized", "load_train"]
 
 
 def _unpickle(path):
@@ -59,3 +60,11 @@ def load(batch_size: int, data_dir: str | None = None, n_examples: int | None = 
 def load_train(data_dir: str | None = None, n_examples: int | None = None):
     """``(images, labels)`` of the first ``n_examples`` training examples."""
     return load_arrays(data_dir, n_examples)["train"]
+
+
+def load_normalized(data_dir: str | None = None, subset: str = "train"):
+    """``(images, labels)`` of the train (or, for any other ``subset``, the
+    test) split as the semi-supervised apps read it: float32 NCHW in [-0.5,
+    0.5] (``x / 255 - 0.5``; ``cifar10_data.py:30-44`` of the reference)."""
+    imgs, labels = load_arrays(data_dir)["train" if subset == "train" else "test"]
+    return imgs.reshape(-1, 3, 32, 32).astype("float32") / 255.0 - 0.5, labels

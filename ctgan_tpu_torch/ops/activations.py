@@ -1,5 +1,5 @@
-"""Activations of the DCGAN family (counterpart of ``leaky_relu`` and
-``gated_nonlinearity`` in ``ctgan_tpu/ops/activations.py:25-46``).
+"""Activations (counterpart of ``leaky_relu``, ``softplus``, ``log_sum_exp``
+and ``gated_nonlinearity`` in ``ctgan_tpu/ops/activations.py:25-46``).
 
 ``leaky_relu`` is ``max(alpha * x, x)`` as the JAX package writes it, not
 ``F.leaky_relu``: at ``x == 0`` the maximum splits its gradient between its
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gated_nonlinearity", "leaky_relu"]
+__all__ = ["gated_nonlinearity", "leaky_relu", "log_sum_exp", "softplus"]
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
@@ -21,3 +21,16 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
 def gated_nonlinearity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sigmoid(a) * tanh(b), the PixelCNN gate."""
     return torch.sigmoid(a) * torch.tanh(b)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it,
+    ``logaddexp(x, 0)``: no threshold past which it returns ``x``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def log_sum_exp(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """``m + log(sum(exp(x - m)))`` with ``m`` the maximum over ``dim``
+    (``amax``: a tie shares its gradient, as ``jnp.max``'s does)."""
+    m = x.amax(dim=dim)
+    return m + torch.log(torch.exp(x - m.unsqueeze(dim)).sum(dim=dim))

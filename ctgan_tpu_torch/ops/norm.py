@@ -56,12 +56,20 @@ def _batch_normed(x: torch.Tensor) -> torch.Tensor:
     return centred * torch.rsqrt(centred.square().mean(dim=axes, keepdim=True) + EPS)
 
 
-def batchnorm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
-    """NCHW, or ``[N, F]`` with per-feature statistics."""
+def batchnorm(x: torch.Tensor, scale: torch.Tensor | None, offset: torch.Tensor) -> torch.Tensor:
+    """NCHW, or ``[N, F]`` with per-feature statistics.  ``scale`` None is
+    the JAX package's ``scale=False``: an offset and no learned gain (the
+    semi-supervised generators)."""
     if x.device.type != "cpu":
-        return F.batch_norm(_wide(x), None, None, weight=scale, bias=offset, training=True,
+        # a unit gain in place of None: CUDA's batch-norm backward returns an
+        # empty weight gradient for weight None beside a bias, which autograd refuses
+        weight = torch.ones_like(offset) if scale is None else scale
+        return F.batch_norm(_wide(x), None, None, weight=weight, bias=offset, training=True,
                             eps=EPS).to(x.dtype)
-    return (_batch_normed(x) * _per_channel(scale, x.ndim) + _per_channel(offset, x.ndim)).to(x.dtype)
+    normed = _batch_normed(x)
+    if scale is not None:
+        normed = normed * _per_channel(scale, x.ndim)
+    return (normed + _per_channel(offset, x.ndim)).to(x.dtype)
 
 
 def cond_batchnorm(

@@ -1,13 +1,17 @@
-"""Trainers (the flagship's ACGAN and the unconditional GAN), optimisers,
-LR schedule and the training loop (counterpart of ``ctgan_tpu/train``)."""
+"""Trainers (the flagship's ACGAN, the unconditional GAN and the
+semi-supervised classifier), optimisers, LR schedule, the data-dependent
+weight-norm init and the training loop (counterpart of ``ctgan_tpu/train``)."""
 
 from .loop import LoopConfig, train_loop
-from .optim import Adam, RMSProp
+from .optim import Adam, AdamTheano, RMSProp
 from .schedules import linear_decay
 from .trainer_acgan import AcganConfig, AcganState, AcganTrainer
 from .trainer_gan import GanConfig, GanState, GanTrainer
+from .trainer_semisup import SslConfig, SslState, SslTrainer, make_ssl_trainer
+from .wn_init import data_dependent_init
 
 __all__ = [
-    "Adam", "AcganConfig", "AcganState", "AcganTrainer", "GanConfig", "GanState", "GanTrainer",
-    "LoopConfig", "RMSProp", "linear_decay", "train_loop",
+    "Adam", "AcganConfig", "AcganState", "AcganTrainer", "AdamTheano", "GanConfig", "GanState", "GanTrainer",
+    "LoopConfig", "RMSProp", "SslConfig", "SslState", "SslTrainer", "data_dependent_init", "linear_decay",
+    "make_ssl_trainer", "train_loop",
 ]

@@ -1,5 +1,6 @@
 """Optimisers and gradient transforms (counterpart of
-``ctgan_tpu/train/optim.py``): TF-semantics Adam and RMSProp, per-element
+``ctgan_tpu/train/optim.py``): TF-semantics Adam and RMSProp, the
+classifiers' Theano-style Adam (:class:`AdamTheano`), per-element
 and global-norm gradient clipping, and the weight clip of weight-clipped
 WGAN.
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "Adam", "RMSProp", "adam_mismatches", "clip_grads_by_global_norm", "clip_grads_by_value",
+    "Adam", "AdamTheano", "RMSProp", "adam_mismatches", "clip_grads_by_global_norm", "clip_grads_by_value",
     "clip_params_by_value", "global_norm",
 ]
 
@@ -72,6 +73,48 @@ class Adam:
         denom = torch._foreach_sqrt(vs)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_addcdiv_(ps, ms, denom, value=-lr_t)
+
+
+class AdamTheano:
+    """The classifiers' hand-written Adam (``ctgan_tpu/train/optim.py:90-112``,
+    ``nn.py:30-47`` of the reference): ``t`` starts at 1;
+    ``m_hat = m / (1 - mom1^t)``, ``v_hat = v / (1 - mom2^t)`` and ``p -= lr *
+    m_hat / sqrt(v_hat + eps)``, eps inside the square root.  The
+    corrections are computed on the host in fp32, as the JAX update computes
+    them; ``lr`` may be a schedule of the step."""
+
+    def __init__(self, lr: float | Callable[[int], float] = 3e-4, mom1: float = 0.9,
+                 mom2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.mom1, self.mom2, self.eps = lr, mom1, mom2, eps
+
+    def init(self, params: dict) -> dict:
+        return {
+            "m": {k: torch.zeros_like(v) for k, v in params.items()},
+            "v": {k: torch.zeros_like(v) for k, v in params.items()},
+            "t": 1.0,
+        }
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict, step: int) -> None:
+        """One step on ``params`` and ``state`` in place."""
+        t32, one = np.float32(state["t"]), np.float32(1.0)
+        c1 = float(one - np.float32(self.mom1) ** t32)
+        c2 = float(one - np.float32(self.mom2) ** t32)
+        names = list(params)
+        ps = [params[k] for k in names]
+        gs = [grads[k] for k in names]
+        ms = [state["m"][k] for k in names]
+        vs = [state["v"][k] for k in names]
+        torch._foreach_mul_(ms, self.mom1)
+        torch._foreach_add_(ms, gs, alpha=1.0 - self.mom1)
+        torch._foreach_mul_(vs, self.mom2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1.0 - self.mom2)
+        m_hat = torch._foreach_div(ms, c1)
+        denom = torch._foreach_div(vs, c2)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_addcdiv_(ps, m_hat, denom, value=-float(_lr_at(self.lr, step)))
+        state["t"] += 1.0
 
 
 class RMSProp:

@@ -6,11 +6,11 @@ from .debug import assert_finite
 from .images import make_grid, save_images
 from .logging import MetricLogger
 from .profiler import StepTimer, profile_step
-from .resume import guard_fresh_start, logged_progress, reap_stale_tmps
+from .resume import guard_fresh_start, logged_progress, reap_stale_tmps, resolve_ssl_resume
 from .watchdog import StepWatchdog
 
 __all__ = [
     "MetricLogger", "StepTimer", "StepWatchdog", "assert_finite", "device_get",
     "guard_fresh_start", "latest_checkpoint", "load_checkpoint", "logged_progress", "make_grid",
-    "profile_step", "reap_stale_tmps", "save_checkpoint", "save_images",
+    "profile_step", "reap_stale_tmps", "resolve_ssl_resume", "save_checkpoint", "save_images",
 ]

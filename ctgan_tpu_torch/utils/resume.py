@@ -1,4 +1,4 @@
-"""Resume safety (own copy of ``ctgan_tpu/utils/resume.py:43-116``).
+"""Resume safety (own copy of ``ctgan_tpu/utils/resume.py:43-172``).
 
 * :func:`guard_fresh_start` refuses to train from iteration S in a
   directory whose ``log.pkl`` records progress beyond S (plus a tolerance,
@@ -9,9 +9,14 @@
   checkpoint write leaves when its process is killed.
 * :func:`logged_progress` is the highest iteration in ``log.pkl``.
 
-The approximate resume from ``params_latest.npz`` lives in
-``train.loop.train_loop``.  ``resolve_ssl_resume`` comes with the
-semi-supervised apps.
+* :func:`resolve_ssl_resume` picks the semi-supervised apps' resume
+  source: the full state ``ssl_state.npz`` (exact), else the tracked
+  ``disc_params.npz`` / ``gen_params.npz`` (and ``avg_params.npz``) with
+  the epoch from ``log.pkl`` (approximate: params exact, optimiser and
+  averages re-warmed), else a guarded fresh start.
+
+The GAN apps' approximate resume from ``params_latest.npz`` lives in
+``train.loop.train_loop``.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ from __future__ import annotations
 import glob
 import os
 import pickle
+import zipfile
 
-__all__ = ["logged_progress", "reap_stale_tmps", "guard_fresh_start"]
+__all__ = ["guard_fresh_start", "logged_progress", "reap_stale_tmps", "resolve_ssl_resume"]
 
 
 def _allow_fresh_env() -> bool:
@@ -75,3 +81,46 @@ def guard_fresh_start(out_dir: str, start_iteration: int, *, allow_fresh_start: 
             f"Restore the checkpoint, point --out_dir elsewhere, or pass "
             f"--allow_fresh_start true (env CTGAN_ALLOW_FRESH_START=1) to proceed deliberately."
         )
+
+
+def resolve_ssl_resume(out_dir: str, ckpt_path: str, *, allow_fresh_start: bool = False,
+                       tolerance: int = 5):
+    """``(mode, start_epoch, blob)``:
+
+    * ``"exact"``: ``ckpt_path`` is readable and current (its epoch plus
+      ``tolerance`` reaches the log's); ``blob`` is its loaded tree.
+    * ``"approx"``: the full state is missing or stale, the tracked
+      ``disc_params.npz`` and ``gen_params.npz`` exist and the log shows
+      more progress; ``blob`` is ``(disc_path, gen_path)`` and the epoch is
+      the log's.
+    * ``"fresh"``: nothing to resume (raises instead, through
+      :func:`guard_fresh_start`, when the log shows progress and a fresh
+      start was not allowed).
+    """
+    from .checkpoint import load_checkpoint
+
+    prior = logged_progress(out_dir)
+    exact_blob, exact_start = None, -1
+    if os.path.exists(ckpt_path):
+        try:
+            exact_blob = load_checkpoint(ckpt_path)
+            exact_start = int(exact_blob["epoch"]) + 1
+        except (OSError, ValueError, KeyError, TypeError, EOFError, zipfile.BadZipFile) as e:  # truncated, corrupt
+            print(f"WARNING: unreadable resume state {ckpt_path}: {e}")
+            exact_blob = None
+
+    disc_path = os.path.join(out_dir, "disc_params.npz")
+    gen_path = os.path.join(out_dir, "gen_params.npz")
+    params_ok = os.path.exists(disc_path) and os.path.exists(gen_path)
+
+    if exact_blob is not None and exact_start + tolerance >= prior:
+        return "exact", exact_start, exact_blob
+    if params_ok and prior > max(exact_start, 0):
+        if exact_blob is not None:
+            print(f"WARNING: {ckpt_path} is STALE (epoch {exact_start} vs logged {prior}): resuming "
+                  f"approximately from tracked params at epoch {prior} instead.")
+        return "approx", prior, (disc_path, gen_path)
+    if exact_blob is not None:  # the log is missing or behind, the state is fine
+        return "exact", exact_start, exact_blob
+    guard_fresh_start(out_dir, 0, allow_fresh_start=allow_fresh_start, unit="epoch")
+    return "fresh", 0, None

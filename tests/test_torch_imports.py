@@ -29,6 +29,9 @@ def test_the_scan_sees_the_port():
     names = {str(f.relative_to(ROOT / "ctgan_tpu_torch")) for f in FILES[:-1]}
     assert {"models/dcgan.py", "models/fc.py", "ops/activations.py", "ops/init.py", "data/mnist.py",
             "data/synthetic.py", "apps/ct_gan_mnist.py", "apps/ct_gan_cifar.py"} <= names
+    assert {"ops/noise.py", "ops/weightnorm.py", "train/wn_init.py", "train/trainer_semisup.py",
+            "models/classifiers.py", "losses/semisup.py", "apps/ssl_common.py", "apps/ct_mnist_ssl.py",
+            "apps/ct_cifar_ssl.py", "apps/profile_ssl.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
