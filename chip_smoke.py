@@ -13,7 +13,8 @@ Phases, each printed with its seconds:
    64 px critic's three shapes, the MNIST and CIFAR-10 conv critics' three
    each and two ragged MNIST counts, fp32
    and bf16, and the semi-supervised CIFAR-10 classifier's three at batch
-   100 and at the data-dependent init's 500, fp32 (its dtype),
+   100 and at the data-dependent init's 500, fp32 (its dtype), and the
+   128 px critic's one in fp32 and bf16,
    keep prob 0.8 and 0.5: bit for bit, keep fraction,
    determinism; a mask read from slot k of a seed table equals the mask of
    the int seed that slot holds; the Philox-uniform kernel against its
@@ -118,7 +119,31 @@ Phases, each printed with its seconds:
     launches of every step (18 for CIFAR-10, 15 with temporal ensembling, 0
     for MNIST) and of the run (3 more at the data-dependent init);
 20. resume_equal_ssl: MNIST two epochs straight against train_ssl_mnist's
-    one + resume, every array of the state equal (max diff 0).
+    one + resume, every array of the state equal (max diff 0);
+21. lsun128_ref (after ssl_ref): the port's full-width 128 px LSUN G
+    (``models.lsun128``, seed 0) on 16 images of ``default_rng(0)`` noise
+    and its D at keep 1 on them, fp32 with TF32 off, against the JAX
+    package's outputs pinned in ``LSUN128_REF``, within 1e-4;
+22. cuda_vs_cpu_lsun128 (after it): the LSUN app's trainer on the 128 px
+    model at ``LSUN128_SMALL``'s widths, batch 4, card against CPU substep
+    by substep in fp32 and bf16 (the losses in bf16 to 32 U, see the
+    phase);
+23. train128 (after the SSL phases): the LSUN app's ``main`` at its
+    defaults (full width, batch 64, 5 critic iterations, bf16) for 6
+    iterations (a grid at 4, a checkpoint at 5), resumed to 8 from
+    ``ckpt_5``, and 3 iterations in fp32: files, grids, 63 mask launches
+    (``[64, 1024, 8, 8]``) per iteration, s/iter synchronised each step,
+    peak memory; the mask kernel holds that shape bit for bit in the
+    kernel phase;
+24. train128_dir: ``input dir`` without ``DATA_DIR`` (the image-directory
+    reader's synthetic fallback, ``prefetch``, ``stack_batches``) for 2;
+25. serve_lsun128: ``apps.generate --model lsun128`` on train128's
+    ``params_latest.npz``: a grid of 16, batch 256 in fp32 and ``--bf16``;
+26. train64_resnet101: the 64 px app's ``ARCH resnet101`` at its defaults
+    (dim 64, batch 64, bf16) for 3 iterations: no dropout, 0 mask launches;
+27. train64_native: the 64 px app's ``input native`` for 2 iterations
+    through ``native/ctgan_io.cpp`` built by ``data.native`` (the phase
+    fails if the library did not build).
 
 The last lines are the card, the kernel record and ``{"ok": true, ...}``.
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -155,10 +180,11 @@ from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as app
 from ctgan_tpu_torch.apps import ct_gan_mnist as mnist_app
 from ctgan_tpu_torch.apps import ct_mnist_ssl as mnist_ssl_app
 from ctgan_tpu_torch.apps import generate, ssl_common
+from ctgan_tpu_torch.apps import wgan_lsun128 as app128
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
 from ctgan_tpu_torch.core.rng import SEED_SLOTS
-from ctgan_tpu_torch.data import DeviceSampler, cifar10, mnist, synthetic_images
+from ctgan_tpu_torch.data import DeviceSampler, cifar10, mnist, native, synthetic_images
 from ctgan_tpu_torch.eval import TrainedScorer
 from ctgan_tpu_torch.kernels import (
     SOURCES,
@@ -170,7 +196,7 @@ from ctgan_tpu_torch.kernels import (
 from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10, seed_table
 from ctgan_tpu_torch.kernels.build import build_libraries, library_path
 from ctgan_tpu_torch.kernels.sass import disassemble, kernel_counts, op_bound_ms
-from ctgan_tpu_torch.models import classifiers, dcgan, good64, resnet_cifar
+from ctgan_tpu_torch.models import classifiers, dcgan, good64, lsun128, resnet_cifar
 from ctgan_tpu_torch.train import (
     AcganConfig,
     AcganTrainer,
@@ -411,9 +437,11 @@ def _check_uniforms(device, seed: int) -> float:
 
 def all_mask_shapes() -> list[tuple]:
     """The mask shapes of every path: the flagship's five, the 64 px
-    critic's three, MNIST's and CIFAR-10's conv critics' three each."""
+    critic's three, MNIST's and CIFAR-10's conv critics' three each, the
+    128 px critic's one."""
     return (flagship_mask_shapes() + dev_cost_mask_shapes() + good64_mask_shapes()
-            + dcgan_mask_shapes(mnist_app.Config()) + dcgan_mask_shapes(cifar_app.Config()))
+            + dcgan_mask_shapes(mnist_app.Config()) + dcgan_mask_shapes(cifar_app.Config())
+            + lsun128_mask_shapes())
 
 
 def launch_shapes() -> list[tuple[str, tuple, torch.dtype]]:
@@ -735,14 +763,17 @@ def _one_batch(device, params, mcfg, seed: int) -> list[torch.Tensor]:
     return [t.float().cpu() for t in (fake, *out)]
 
 
-def _substep_checker(device, *, bf16: bool, lr: float, beta1: float, zero_grad, elementwise: bool = True):
+def _substep_checker(device, *, bf16: bool, lr: float, beta1: float, zero_grad, elementwise: bool = True,
+                     bf16_loss_bound: float = BF16_BOUND):
     """``check(network, state_before, dev_state, cpu_state, dev_metrics,
     cpu_metrics)`` for ``_lockstep``/``_lockstep_gan``, with the report it
     fills and the failures it collects (the bounds of
     ``phase_cuda_vs_cpu``; ``elementwise=False`` leaves out its elementwise
-    check of iteration 0's params).  A substep's gradient is read back from
-    TF-Adam's first moment: ``(m - beta1 * m_before) / (1 - beta1)``."""
-    tol = dict(rel_tol=BF16_BOUND, abs_tol=BF16_BOUND) if bf16 else dict(rel_tol=1e-3, abs_tol=1e-5)
+    check of iteration 0's params; ``bf16_loss_bound`` is the losses' bound
+    in bf16).  A substep's gradient is read back from TF-Adam's first
+    moment: ``(m - beta1 * m_before) / (1 - beta1)``."""
+    tol = (dict(rel_tol=bf16_loss_bound, abs_tol=bf16_loss_bound) if bf16
+           else dict(rel_tol=1e-3, abs_tol=1e-5))
     grad_bound, flip_bound = (BF16_GRAD_BOUND, BF16_BOUND) if bf16 else (FP32_GRAD_BOUND, FP32_FLIP_BOUND)
     report = {"diff": 0.0, "moved": 0, "total": 0, "grad_l1": 0.0, "flipped_mass": 0.0}
     failures = []
@@ -970,7 +1001,9 @@ def _run_main(cfg: app.Config, device) -> tuple:
             time.perf_counter() - t0)
 
 
-def _test_iterations(cfg: app.Config, start: int) -> list[int]:
+def _test_iterations(cfg, start: int) -> list[int]:
+    """The iterations from ``start`` on whose ``test_fn`` runs (any app's
+    config with ``ITERS`` and ``sample_every``)."""
     return [it for it in range(start, cfg.ITERS) if it % cfg.sample_every == cfg.sample_every - 1]
 
 
@@ -1301,6 +1334,64 @@ def _run_gan_main(module, cfg, device) -> tuple:
             time.perf_counter() - t0)
 
 
+def _gan_run_report(run: tuple, cfg, start: int, per_iteration: int, device, *, extra_launches: int = 0,
+                    metrics=("wgan", "ct", "gp", "disc_cost", "gen_cost")) -> dict:
+    """The checks every unconditional app's ``main`` gets
+    (``_run_gan_main``'s output ``run``): the resume line, the mask
+    launches (``per_iteration`` each plus ``extra_launches`` on the card, no
+    uniforms), the end step, ``metrics`` finite in the last record; and its
+    timings and peak memory.  Returns them with the final ``state``."""
+    state, records, launches, uniforms, step_s, stdout, seconds = run
+    if start:
+        want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
+        if want not in stdout:
+            raise AssertionError(f"no line {want!r} in the resumed run's output")
+    expected = (cfg.ITERS - start) * per_iteration + extra_launches if device.type == "cuda" else 0
+    if (launches, uniforms) != (expected, 0):
+        raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times, "
+                             f"expected {expected}, 0")
+    if state.step != cfg.ITERS or records[-1]["iteration"] != cfg.ITERS - 1:
+        raise AssertionError(f"run ended at step {state.step}, records {records[-1]}")
+    last = records[-1]
+    for k in metrics:
+        if not math.isfinite(last[k]):
+            raise AssertionError(f"{k} = {last[k]}")
+    first = start + (start == 0 and cfg.ITERS > 1)  # a fresh run's iteration 0 warms cuDNN up
+    timed = step_s[first - start:]
+    return dict(state=state, launches=launches, uniform_launches=uniforms, per_iteration=per_iteration,
+                timed=f"{first}-{cfg.ITERS - 1}", s_per_iter=float(np.mean(timed)),
+                s_per_iter_min=float(min(timed)), s_per_iter_all=[round(t, 5) for t in step_s],
+                peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+                seconds=seconds, last=last)
+
+
+def _check_run_files(cfg, start: int, grid_shape: tuple, extra: tuple = ()) -> None:
+    """Checkpoints, logs, ``params_latest.npz`` and each test's grid (of
+    ``grid_shape`` pixels) in ``cfg.out_dir``, and ``extra`` files when a
+    test ran."""
+    out, tests = Path(cfg.out_dir), _test_iterations(cfg, start)
+    saves = [n for n in range(start + 1, cfg.ITERS + 1) if n % cfg.save_every == 0]
+    files = [f"ckpt/ckpt_{n}.npz" for n in saves] + ["log.pkl", "log.ndjson"]
+    files += (["params_latest.npz"] if saves else []) + [f"samples_{it}.png" for it in tests]
+    files += list(extra) if tests else []
+    missing = [f for f in files if not (out / f).is_file()]
+    if missing:
+        raise AssertionError(f"missing in out_dir: {missing}")
+    for it in tests:
+        if decode_png(out / f"samples_{it}.png").shape != grid_shape:
+            raise AssertionError(f"samples_{it}.png is not a grid of {grid_shape} pixels")
+
+
+def _check_samples(samples: torch.Tensor, cfg, device, shape: tuple, low: float) -> None:
+    """G's samples: ``shape``, bf16 where the run was (``cfg.BF16`` on the
+    card), finite and in ``[low, 1]``."""
+    want_dtype = torch.bfloat16 if cfg.BF16 and device.type == "cuda" else torch.float32
+    if samples.dtype != want_dtype or samples.shape != shape:
+        raise AssertionError(f"generator samples are {samples.dtype} {tuple(samples.shape)}")
+    if not bool(torch.isfinite(samples).all()) or samples.min() < low or samples.max() > 1:
+        raise AssertionError(f"generator samples are not finite values in [{low}, 1]")
+
+
 def phase_train64(device, cfg: app64.Config, start: int = 0) -> dict:
     """One ``app64.main`` in ``cfg.out_dir`` (fresh, or resuming at
     ``start``): launches (``gan_masks_per_iteration`` each, none of the
@@ -1310,51 +1401,19 @@ def phase_train64(device, cfg: app64.Config, start: int = 0) -> dict:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state, records, launches, uniforms, step_s, stdout, seconds = _run_gan_main(app64, cfg, device)
-    if start:
-        want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
-        if want not in stdout:
-            raise AssertionError(f"no line {want!r} in the resumed run's output")
-    expected = (cfg.ITERS - start) * gan_masks_per_iteration(cfg) if device.type == "cuda" else 0
-    if (launches, uniforms) != (expected, 0):
-        raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times, "
-                             f"expected {expected}, 0")
-    if state.step != cfg.ITERS or records[-1]["iteration"] != cfg.ITERS - 1:
-        raise AssertionError(f"run ended at step {state.step}, records {records[-1]}")
-    out = Path(cfg.out_dir)
-    tests = [it for it in range(start, cfg.ITERS) if it % cfg.sample_every == cfg.sample_every - 1]
-    saves = [n for n in range(start + 1, cfg.ITERS + 1) if n % cfg.save_every == 0]
-    files = [f"ckpt/ckpt_{n}.npz" for n in saves] + ["log.pkl", "log.ndjson"]
-    files += (["params_latest.npz"] if saves else []) + [f"samples_{it}.png" for it in tests]
-    missing = [f for f in files if not (out / f).is_file()]
-    if missing:
-        raise AssertionError(f"missing in out_dir: {missing}")
-    for it in tests:
-        grid = decode_png(out / f"samples_{it}.png")
-        if grid.shape != (512, 512, 3):
-            raise AssertionError(f"samples_{it}.png is {grid.shape}, not an 8x8 grid of 64x64 RGB")
-    last = records[-1]
-    for k in ("wgan", "ct", "gp", "disc_cost", "gen_cost"):
-        if not math.isfinite(last[k]):
-            raise AssertionError(f"{k} = {last[k]}")
+    run = _run_gan_main(app64, cfg, device)
+    out = _gan_run_report(run, cfg, start, gan_masks_per_iteration(cfg), device)
+    state, records, stdout = out.pop("state"), run[1], run[5]
+    _check_run_files(cfg, start, (512, 512, 3))
     evals = [{k: r[k] for k in ("iteration", "inception score", "fid")} for r in records if "inception score" in r]
     for r in evals:
         if not (math.isfinite(r["fid"]) and 1.0 <= r["inception score"] <= 10.0):
             raise AssertionError(f"IS/FID out of range: {r}")
     with torch.no_grad():
         samples = good64.generator(state.gen_params, 64, Randomness(1, device), dim=cfg.DIM)
-    want_dtype = torch.bfloat16 if cfg.BF16 and device.type == "cuda" else torch.float32
-    if samples.dtype != want_dtype or samples.shape != (64, 3 * 64 * 64):
-        raise AssertionError(f"generator samples are {samples.dtype} {tuple(samples.shape)}")
-    if not bool(torch.isfinite(samples).all()) or samples.abs().max() > 1:
-        raise AssertionError("generator samples are not finite values in [-1, 1]")
+    _check_samples(samples, cfg, device, (64, 3 * 64 * 64), -1.0)
     fit = re.search(r"IS scorer: fitted in ([0-9.]+) s", stdout)
-    first = start + (start == 0)  # a fresh run's iteration 0 warms cuDNN up
-    return dict(launches=launches, uniform_launches=uniforms, per_iteration=launches // max(cfg.ITERS - start, 1),
-                timed=f"{first}-{cfg.ITERS - 1}", s_per_iter=float(np.mean(step_s[first - start:])),
-                s_per_iter_min=float(min(step_s[first - start:])),
-                peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
-                seconds=seconds, evals=evals, last=last, scorer_fit_s=float(fit.group(1)) if fit else None)
+    return out | dict(evals=evals, scorer_fit_s=float(fit.group(1)) if fit else None)
 
 
 def phase_resume_equal_gan(device, *, precision="float32", dim=16, batch=4, n_critic=2, iters=4,
@@ -1500,39 +1559,19 @@ def phase_train_dcgan(device, module, cfg, start: int = 0) -> dict:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state, records, launches, uniforms, step_s, stdout, seconds = _run_gan_main(module, cfg, device)
-    if start:
-        want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
-        if want not in stdout:
-            raise AssertionError(f"no line {want!r} in the resumed run's output")
     is_cifar = isinstance(cfg, cifar_app.Config)
-    tests = [it for it in range(start, cfg.ITERS) if it % cfg.sample_every == cfg.sample_every - 1]
-    expected = 0
-    if device.type == "cuda":
-        expected = (cfg.ITERS - start) * gan_masks_per_iteration(cfg) + len(tests) * dcgan_masks_per_test(cfg)
-    if (launches, uniforms) != (expected, 0):
-        raise AssertionError(f"dropout_mask, philox_uniform launched {launches}, {uniforms} times, "
-                             f"expected {expected}, 0")
-    if state.step != cfg.ITERS or records[-1]["iteration"] != cfg.ITERS - 1:
-        raise AssertionError(f"run ended at step {state.step}, records {records[-1]}")
-    out = Path(cfg.out_dir)
-    saves = [n for n in range(start + 1, cfg.ITERS + 1) if n % cfg.save_every == 0]
-    files = [f"ckpt/ckpt_{n}.npz" for n in saves] + ["log.pkl", "log.ndjson"]
-    files += (["params_latest.npz"] if saves else []) + [f"samples_{it}.png" for it in tests]
-    files += ["disc_params.npz"] if is_cifar and tests else []
-    missing = [f for f in files if not (out / f).is_file()]
-    if missing:
-        raise AssertionError(f"missing in out_dir: {missing}")
-    chw = _dcgan_chw(cfg)
-    for it in tests:
-        if decode_png(out / f"samples_{it}.png").shape != _grid_shape(mnist_app.N_GRID, chw):
-            raise AssertionError(f"samples_{it}.png is not a grid of {mnist_app.N_GRID} images of {chw}")
-    last = records[-1]
+    tests = _test_iterations(cfg, start)
+    run = _run_gan_main(module, cfg, device)
     keys = ("wgan", "ct", "gp", "disc_cost", "gen_cost") if cfg.MODE == "wgan-CT" else ("disc_cost", "gen_cost")
+    out = _gan_run_report(run, cfg, start, gan_masks_per_iteration(cfg), device,
+                          extra_launches=len(tests) * dcgan_masks_per_test(cfg), metrics=keys)
+    state, records, stdout = out.pop("state"), run[1], run[5]
+    chw = _dcgan_chw(cfg)
+    _check_run_files(cfg, start, _grid_shape(mnist_app.N_GRID, chw), ("disc_params.npz",) if is_cifar else ())
     tested = [r for r in records if r["iteration"] in tests]
     test_keys = ("dev disc cost", "slope_real") if is_cifar else ("dev disc cost",)
-    for r, ks in [(last, keys)] + [(r, test_keys) for r in tested]:
-        for k in ks:
+    for r in tested:
+        for k in test_keys:
             if not math.isfinite(r[k]):
                 raise AssertionError(f"iteration {r['iteration']}: {k} = {r[k]}")
     evals = [{k: r[k] for k in ("iteration", "inception score")} for r in records if "inception score" in r]
@@ -1542,21 +1581,11 @@ def phase_train_dcgan(device, module, cfg, start: int = 0) -> dict:
     kw = {} if is_cifar else {"mode": cfg.MODE}
     with torch.no_grad():
         samples = gen(state.gen_params, 64, Randomness(1, device), dim=cfg.DIM, **kw)
-    want_dtype = torch.bfloat16 if cfg.BF16 and device.type == "cuda" else torch.float32
-    if samples.dtype != want_dtype or samples.shape != (64, math.prod(chw)):
-        raise AssertionError(f"generator samples are {samples.dtype} {tuple(samples.shape)}")
-    low = -1.0 if is_cifar else 0.0
-    if not bool(torch.isfinite(samples).all()) or samples.min() < low or samples.max() > 1:
-        raise AssertionError(f"generator samples are not finite values in [{low}, 1]")
+    _check_samples(samples, cfg, device, (64, math.prod(chw)), -1.0 if is_cifar else 0.0)
     fit = re.search(r"IS scorer: fitted in ([0-9.]+) s", stdout)
-    first = start + (start == 0)  # a fresh run's iteration 0 warms cuDNN up
-    return dict(launches=launches, uniform_launches=uniforms, per_iteration=gan_masks_per_iteration(cfg),
-                per_test=dcgan_masks_per_test(cfg), timed=f"{first}-{cfg.ITERS - 1}",
-                s_per_iter=float(np.mean(step_s[first - start:])),
-                s_per_iter_min=float(min(step_s[first - start:])),
-                peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
-                seconds=seconds, evals=evals, last=last, scorer_fit_s=float(fit.group(1)) if fit else None,
-                tests={r["iteration"]: {k: r[k] for k in test_keys} for r in tested})
+    return out | dict(per_test=dcgan_masks_per_test(cfg), evals=evals,
+                      scorer_fit_s=float(fit.group(1)) if fit else None,
+                      tests={r["iteration"]: {k: r[k] for k in test_keys} for r in tested})
 
 
 # The JAX package's MNIST (dim 64) and CIFAR-10 (dim 128) G at seed 0 (JAX's init_context(0), as each
@@ -1630,26 +1659,31 @@ def phase_dcgan_ref(device) -> dict:
     return gaps
 
 
-def phase_serve_dcgan(device, ckpts: dict, out_dir: str) -> dict:
-    """``apps.generate --model mnist|cifar`` on the train phases'
-    ``params_latest.npz``: a grid of 100 and batch 1024 served in fp32 and
-    with ``--bf16`` (images/s); G launches no kernel."""
+# each served model's image shape, value floor, grid size, and the batch and queued requests timed
+SERVED = {"mnist": ((1, 28, 28), 0.0, 100, 1024, 20), "cifar": ((3, 32, 32), -1.0, 100, 1024, 20),
+          "lsun128": ((3, 128, 128), -1.0, 16, 256, 10)}
+
+
+def phase_serve_gan(device, ckpts: dict, out_dir: str) -> dict:
+    """``apps.generate --model <model>`` on each train phase's
+    ``params_latest.npz`` in ``ckpts``: a grid, then a batch served in
+    fp32 and with ``--bf16`` (images/s), at ``SERVED``'s sizes; G
+    launches no kernel."""
     before = dropout_mask.launches, philox_uniform.launches
     serve = {}
     for model, ckpt in ckpts.items():
+        chw, low, n, batch, iters = SERVED[model]
         prefix = str(Path(out_dir) / f"generated_{model}")
-        samples = generate.main(cfg=generate.Config(model=model, ckpt=ckpt, n=100, out_prefix=prefix),
+        samples = generate.main(cfg=generate.Config(model=model, ckpt=ckpt, n=n, batch=n, out_prefix=prefix),
                                 device=device)
-        chw = (1, 28, 28) if model == "mnist" else (3, 32, 32)
-        low = 0.0 if model == "mnist" else -1.0
-        if samples.shape != (100, math.prod(chw)) or not np.isfinite(samples).all() or not (
+        if samples.shape != (n, math.prod(chw)) or not np.isfinite(samples).all() or not (
                 low <= samples.min() and samples.max() <= 1):
-            raise AssertionError(f"generate {model}: samples are not finite [100, {math.prod(chw)}] in [{low}, 1]")
-        if decode_png(prefix + ".png").shape != _grid_shape(100, chw):
-            raise AssertionError(f"generate {model}: the grid is not 10x10 images of {chw}")
+            raise AssertionError(f"generate {model}: samples are not finite [{n}, {math.prod(chw)}] in [{low}, 1]")
+        if decode_png(prefix + ".png").shape != _grid_shape(n, chw):
+            raise AssertionError(f"generate {model}: the grid is not {n} images of {chw}")
         for bf16 in (False, True):
             serve[f"{model} {'bf16' if bf16 else 'fp32'}"] = generate.main(
-                cfg=generate.Config(model=model, ckpt=ckpt, batch=1024, serve_iters=20, bf16=bf16), device=device)
+                cfg=generate.Config(model=model, ckpt=ckpt, batch=batch, serve_iters=iters, bf16=bf16), device=device)
     if (dropout_mask.launches, philox_uniform.launches) != before:
         raise AssertionError("generate launched a kernel; G has no dropout")
     return serve
@@ -1703,7 +1737,173 @@ def run_dcgan_apps(device, out_dir: str, scorer: Path | None = None) -> dict:
                                    out_dir=f"{out_dir}/{name}_fp32", **{k: 0 for k in extra})
         runs[f"train_{name}_fp32"] = _phase(f"train_{name}_fp32", phase_train_dcgan, device, module, fp32)
         ckpts[name] = f"{cfg.out_dir}/params_latest.npz"
-    serve = _phase("serve_dcgan", phase_serve_dcgan, device, ckpts, out_dir)
+    serve = _phase("serve_dcgan", phase_serve_gan, device, ckpts, out_dir)
+    return {"runs": runs, "serve": serve}
+
+
+# ---------------------------------------------------------------- 128 px LSUN and the rest of 64 px
+
+# The JAX package's full-width 128 px LSUN G at seed 0 (JAX's init_context(0), as its app builds it) on
+# np.random.default_rng(0).standard_normal((16, 128), dtype=float32), fp32 on the CPU, and its D's logits
+# at keep probability 1 on those images: the numbers of dcgan_ref_summary.  Recompute with
+#   python -m pytest -m slow tests/test_torch_chip_lsun128.py -k pinned
+LSUN128_REF = {
+    "g_mean": 0.09716434102979599, "g_std": 0.3362391677345411,
+    "g_at": [-0.04576167091727257, 0.11142399907112122, -0.3158318102359772, 0.363416463136673,
+             -0.12553437054157257, -0.1443500816822052, -0.07247890532016754, -0.14504244923591614],
+    "d_mean": -1.5443111583590508, "d_std": 0.16263858717736474,
+    "d_first": [-1.6306447982788086, -1.2827105522155762, -1.5009427070617676, -1.8400251865386963,
+                -1.736937403678894, -1.5843088626861572, -1.5283321142196655, -1.5957111120224],
+}
+LSUN128_REF_BOUND = 1e-4  # absolute, on every pinned number, as DCGAN_REF_BOUND
+N_LSUN128_REF = 16
+TRAIN128_ITERS, RESUME128_ITERS, FP32_128_ITERS = 6, 8, 3
+# small widths for the substep comparison with the CPU (the defaults are 1024 at G's 4 px and D's 8 px)
+LSUN128_SMALL = lsun128.Lsun128Config(dim_g_4=64, dim_g_8=32, dim_g_16=16, dim_g_32=16, dim_g_64=16,
+                                      dim_d_64=16, dim_d_32=16, dim_d_16=32, dim_d_8=64)
+
+
+def lsun128_mask_shapes(batch: int = 64, cfg: lsun128.Lsun128Config = lsun128.Lsun128Config()) -> list[tuple]:
+    """The 128 px critic's one mask shape: after its third down block and
+    each 8 px block (keep 0.8, 0.5, 0.5), 21 launches each per iteration."""
+    return [(batch, cfg.dim_d_8, 8, 8)]
+
+
+def lsun128_masks_per_iteration(cfg: app128.Config) -> int:
+    """3 masks in the G substep and in each of a critic substep's 4 D
+    passes (real, fake, the CT's second real pass, the GP's
+    interpolates): 63 at 5 critic iterations."""
+    return 3 + cfg.CRITIC_ITERS * 3 * _d_passes("wgan-CT")
+
+
+def lsun128_ref_outputs(device) -> dict:
+    """``dcgan_ref_summary`` of the port's full-width 128 px G and D at seed
+    0, as ``LSUN128_REF`` was made, on ``device``, under the precision in
+    force."""
+    p = {k: v.to(device) for k, v in from_jax_params(lsun128.init_params(seed=0)).items()}
+    noise = torch.from_numpy(np.random.default_rng(0).standard_normal((N_LSUN128_REF, 128), dtype=np.float32))
+    with torch.no_grad():
+        images = lsun128.generator(p, N_LSUN128_REF, None, noise=noise.to(device))
+        logits, _ = lsun128.discriminator(p, images, None, kps=(1.0, 1.0, 1.0))
+    return dcgan_ref_summary(images.float().cpu().numpy(), logits.float().cpu().numpy())
+
+
+def phase_lsun128_ref(device) -> float:
+    """The full-width gate for the 128 px model, which no JAX checkpoint
+    covers: the port's G and D at seed 0 on ``device``, fp32 with TF32 off,
+    against the JAX package's outputs pinned in ``LSUN128_REF``, every
+    number within ``LSUN128_REF_BOUND``.  No kernel is launched (keep 1)."""
+    before = dropout_mask.launches
+    with precision_policy("float32"), _no_tf32():
+        gap = _largest_gap(lsun128_ref_outputs(device), LSUN128_REF)
+    print(f"lsun128_ref: the port's full-width G on {N_LSUN128_REF} images and D at keep 1 on {device} (fp32, "
+          f"TF32 off) against the JAX package's pinned outputs: largest gap {gap:.3g} (bound {LSUN128_REF_BOUND})")
+    if dropout_mask.launches != before:
+        raise AssertionError("lsun128_ref launched a mask at keep probability 1")
+    if not gap <= LSUN128_REF_BOUND:
+        raise AssertionError(f"lsun128_ref: the port's outputs differ from the JAX package's by {gap}")
+    return gap
+
+
+def phase_cuda_vs_cpu_lsun128(device, *, precision="float32", batch=4, n_critic=2, iters=2, seed=0) -> float:
+    """``phase_cuda_vs_cpu_gan`` for the 128 px model at ``LSUN128_SMALL``'s
+    widths and the LSUN app's trainer (wgan-CT, Adam with beta1 0 and
+    linear decay), batch 4, with its bounds, but for the losses in bf16:
+    those are held to ``BF16_GRAD_BOUND`` (32 U) of their value, not 4 U.
+    Through this critic's 5 blocks and 10 layer norms two correct bf16 runs
+    on the CPU that differ only in the order of one sum (the down blocks'
+    shortcut fused into one stride-2 conv or not) give losses up to 4.0%
+    apart, and bf16 is up to 4.3% from fp32 (seeds 0-2;
+    ``tests/torch_lsun128_bf16_probe.py``).  The gradients keep their
+    bounds."""
+    gcfg = GanConfig(mode="wgan-CT", batch_size=batch, critic_iters=n_critic, iters=100, beta1=0.0,
+                     lr_decay=True)
+    trainer = GanTrainer(
+        lambda p, n, rand, noise=None: lsun128.generator(p, n, rand, cfg=LSUN128_SMALL, noise=noise),
+        lambda p, x, rand: lsun128.discriminator(p, x, rand, cfg=LSUN128_SMALL),
+        gcfg,
+    )
+    bf16 = precision == "bfloat16"
+    check, report, failures = _substep_checker(device, bf16=bf16, lr=gcfg.lr, beta1=gcfg.beta1,
+                                               zero_grad=lsun128.zero_grad_params(LSUN128_SMALL), elementwise=False,
+                                               bf16_loss_bound=BF16_GRAD_BOUND)
+    with precision_policy(precision), _no_tf32():
+        _lockstep_gan(device, trainer, lsun128.init_params(LSUN128_SMALL, seed), iters=iters, seed=seed,
+                      check=check, real_dim=3 * 128 * 128)
+    return _lockstep_report(f"lsun128 small, batch {batch}: ", device, precision, iters, report, failures)
+
+
+def phase_train128(device, cfg: app128.Config, start: int = 0) -> dict:
+    """One ``app128.main`` in ``cfg.out_dir`` (fresh, or resuming at
+    ``start``): 63 mask launches per iteration at the defaults, files
+    (checkpoints, logs, 8 x 8 grids of 128 px), finite metrics, G's samples
+    in [-1, 1] in the run's dtype; seconds per step (synchronised) and peak
+    device memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = _gan_run_report(_run_gan_main(app128, cfg, device), cfg, start, lsun128_masks_per_iteration(cfg), device)
+    state = out.pop("state")
+    _check_run_files(cfg, start, _grid_shape(app128.N_GRID, app128.CHW))
+    with torch.no_grad():
+        samples = lsun128.generator(state.gen_params, 16, Randomness(1, device), cfg=app128.model_config(cfg))
+    _check_samples(samples, cfg, device, (16, 3 * 128 * 128), -1.0)
+    return out
+
+
+def phase_train64_more(device, cfg: app64.Config) -> dict:
+    """``app64.main`` on a path the ``train64`` phase does not take: ``ARCH
+    resnet101`` (no dropout in D, so no mask launch) or ``input native``
+    (the native pipeline, which must have built: the app's directory path
+    would pass silently otherwise); launches, end step, finite metrics."""
+    device = torch.device(device)
+    if cfg.input == "native" and not native.native_available():
+        raise AssertionError(f"the native library did not build: {native.build_error()}")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    per_iteration = 0 if cfg.ARCH == "resnet101" else gan_masks_per_iteration(cfg)
+    out = _gan_run_report(_run_gan_main(app64, cfg, device), cfg, 0, per_iteration, device)
+    out.pop("state")
+    return out
+
+
+def _gan_line(name: str, out: dict) -> str:
+    peak = "not measured" if out["peak_bytes"] is None else f"{out['peak_bytes'] / 2**30:.3f} GiB"
+    return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations {out['timed']} "
+            f"(min {out['s_per_iter_min']:.5f}; each step synchronised; all {out['s_per_iter_all']}), "
+            f"{out['seconds']:.2f} s for main, peak {peak}, mask launches {out['launches']} "
+            f"({out['per_iteration']} per iteration), last {json.dumps(out['last'])}")
+
+
+def run_lsun128_apps(device, out_dir: str) -> dict:
+    """The 128 px app at its defaults (full width, batch 64, bf16), cut in
+    depth: ``TRAIN128_ITERS`` iterations with a grid and a checkpoint at 5,
+    ``main`` again to ``RESUME128_ITERS`` (a resume from ``ckpt_5``), and
+    ``FP32_128_ITERS`` in fp32; ``input dir`` without ``DATA_DIR`` (the
+    image-directory reader's synthetic fallback) for 2; ``generate --model
+    lsun128`` on the bf16 run's ``params_latest.npz``; then the 64 px app's
+    ``ARCH resnet101`` for 3 iterations and ``input native`` for 2."""
+    runs = {}
+    cfg = app128.Config(ITERS=TRAIN128_ITERS, save_every=5, sample_every=5, out_dir=f"{out_dir}/lsun128")
+    print(f"train128: cut for time: ITERS {TRAIN128_ITERS} (of {app128.Config().ITERS}); DIM_G_4 {cfg.DIM_G_4}, "
+          f"DIM_D_8 {cfg.DIM_D_8}, BATCH_SIZE {cfg.BATCH_SIZE}, CRITIC_ITERS {cfg.CRITIC_ITERS}, BF16 {cfg.BF16} "
+          f"(the defaults)")
+    runs["train128"] = _phase("train128", phase_train128, device, cfg)
+    runs["train128_resume"] = _phase("train128_resume", phase_train128, device,
+                                     dataclasses.replace(cfg, ITERS=RESUME128_ITERS),
+                                     start=TRAIN128_ITERS // cfg.save_every * cfg.save_every)
+    runs["train128_fp32"] = _phase("train128_fp32", phase_train128, device, dataclasses.replace(
+        cfg, ITERS=FP32_128_ITERS, BF16=False, save_every=FP32_128_ITERS, sample_every=FP32_128_ITERS,
+        out_dir=f"{out_dir}/lsun128_fp32"))
+    runs["train128_dir"] = _phase("train128_dir", phase_train128, device, dataclasses.replace(
+        cfg, ITERS=2, input="dir", save_every=2, sample_every=2, out_dir=f"{out_dir}/lsun128_dir"))
+    serve = _phase("serve_lsun128", phase_serve_gan, device, {"lsun128": f"{cfg.out_dir}/params_latest.npz"},
+                   out_dir)
+    for name, kw in (("train64_resnet101", dict(ARCH="resnet101", ITERS=3)), ("train64_native", dict(
+            input="native", ITERS=2))):
+        cfg64 = app64.Config(save_every=kw["ITERS"], sample_every=kw["ITERS"], inception_every=0,
+                             out_dir=f"{out_dir}/{name}", **kw)
+        runs[name] = _phase(name, phase_train64_more, device, cfg64)
     return {"runs": runs, "serve": serve}
 
 
@@ -2074,6 +2274,9 @@ def main() -> int:
     ssl_vs_cpu = {v: _phase(f"cuda_vs_cpu_ssl_{v}", phase_cuda_vs_cpu_ssl, device, variant=v,
                             batch=20 if v == "mnist" else 4) for v in ("mnist", "cifar", "te")}
     ssl_ref = _phase("ssl_ref", phase_ssl_ref, device)
+    lsun128_ref = _phase("lsun128_ref", phase_lsun128_ref, device)
+    lsun128_vs_cpu = {p: _phase(f"cuda_vs_cpu_lsun128_{p}", phase_cuda_vs_cpu_lsun128, device, precision=p)
+                      for p in ("float32", "bfloat16")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg = app.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, INCEPTION_FREQUENCY=10,
                          inception_samples=5000, out_dir=f"{out_dir}/bf16")
@@ -2107,9 +2310,11 @@ def main() -> int:
         good64_ckpt = _phase("good64_checkpoint", phase_good64_checkpoint, device, out_dir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_") as out_dir:
         ssl_runs = run_ssl_apps(device, out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lsun128_") as out_dir:
+        lsun_runs = run_lsun128_apps(device, out_dir)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
             "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
-            "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"]}
+            "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"], **lsun_runs["runs"]}
     launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
                 "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
     print(f"train: {json.dumps(dataclasses.asdict(cfg) | {'out_dir': '<tmp>'})}")
@@ -2140,6 +2345,11 @@ def main() -> int:
     for name, run in ssl_runs["runs"].items():
         print(_ssl_line(name, run))
     print(f"resume_equal_ssl: max diff {ssl_runs['resume_equal']}")
+    print(f"lsun128_ref: largest gap to the JAX package's pinned outputs {lsun128_ref:.3g}")
+    print(f"cuda_vs_cpu_lsun128: max param diff {json.dumps(lsun128_vs_cpu)}")
+    for name, run in lsun_runs["runs"].items():
+        print(_gan_line(name, run))
+    print(f"serve lsun128: {json.dumps(lsun_runs['serve'])}")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
         print(f"{name} launches on the main path: "
               + " + ".join(f"{k} {r[key]}" for k, r in runs.items()) + f" = {launches[name]}")

@@ -12,24 +12,36 @@ defaults (``ctgan_tpu/apps/ct_gan_64x64.py:29-63``): ``MODE`` wgan-ct,
 (``ctgan_tpu/apps/ct_gan_64x64.py:67-99``): ``good`` (the "Good" ResNet,
 ``models.good64``), ``dcgan`` (DCGAN G and D, built under a 0.02 init
 stdev), ``crippled`` (the WGAN paper's G without batch norm, DCGAN D),
-``fc`` (the fully-connected G, ``models.fc``, DCGAN D) and
-``multiplicative`` (gated G and D); ``models.dcgan``.  Only ``good``'s D
-drops out: the other archs launch no kernel.  Not ported yet, and refused:
-``ARCH resnet101``, ``DATA_DIR`` and ``input`` other than ``hbm`` (ROADMAP
-Queue 1 item 14: the image-directory reader and the native pipeline),
-``REMAT`` and a non-fp32 ``OPT_STATE_DTYPE`` (item 17).
+``fc`` (the fully-connected G, ``models.fc``, DCGAN D),
+``multiplicative`` (gated G and D; ``models.dcgan``) and ``resnet101``
+(the 101-layer bottleneck ResNet, ``models.good64``, layer norm in D
+whatever the mode).  Only ``good``'s D drops out: the other archs launch no
+kernel.  Not ported yet, and refused: ``REMAT`` and a non-fp32
+``OPT_STATE_DTYPE`` (ROADMAP Queue 1 item 17).
 
 Precision as in the flagship app: ``BF16`` sets the bf16 policy
 (``core.precision``) process-wide when the run is on the card; on the CPU
 the run is fp32, as the JAX app is off the accelerator; ``--BF16 0`` runs
 fp32 on the card too.
 
-Data: the JAX app's synthetic pool of 4,096 64 px images (seed ``seed``),
-uint8 on the device.  Each iteration takes its ``[K, B]`` batch from the
-pool with ``DeviceSampler`` at the state's step, scales it by ``2 * (x /
-255 - 0.5)`` and flips each image left to right with probability 1/2
-(``data.augment``, the math of ``ctgan_tpu/data/hbm_input.py:68-74``); no
-dequantisation noise.  ``dcgan`` trains one critic batch per iteration.
+Data, as the JAX app chooses it (``ctgan_tpu/apps/ct_gan_64x64.py:139-180``):
+
+* ``input hbm`` (the default) without ``DATA_DIR``: the synthetic pool of
+  4,096 64 px images (seed ``seed``), uint8 on the device.  Each iteration
+  takes its ``[K, B]`` batch from the pool with ``DeviceSampler`` at the
+  state's step, scales it by ``2 * (x / 255 - 0.5)`` and flips each image
+  left to right with probability 1/2 (``data.augment``, the math of
+  ``ctgan_tpu/data/hbm_input.py:68-74``); no dequantisation noise.
+* ``input native`` without ``DATA_DIR``: the same pool through the native
+  host pipeline (``data.native.NativePipeline``: shuffle, flips and scaling
+  in C++ worker threads), when its library builds; else the next path.
+* otherwise (``DATA_DIR``, ``input dir``): the image directory
+  (``data.images_dir``, PIL), or its synthetic fallback when ``DATA_DIR``
+  is empty or missing, decoded in a background thread.  There is no pool to
+  fit a scorer on or take FID against: IS needs a ``scorer.npz`` in
+  ``out_dir``, else it is off, as in the JAX app.
+
+``dcgan`` trains one critic batch per iteration.
 
 The run is the JAX app's workflow through ``train.loop.train_loop``:
 metrics printed on the first 5 iterations and every 100th; every
@@ -58,19 +70,32 @@ import torch
 
 from ..bridge import from_jax_params
 from ..core import Randomness, default_policy, split_params
-from ..data import DeviceSampler, scale_and_flip, synthetic_images
+from ..data import DeviceSampler, synthetic_images
+from ..data.native import NativePipeline, native_available
 from ..models import dcgan, fc, good64
 from ..train import GanConfig, GanState, GanTrainer
 from . import common
-from .common import pick_scorer, require_device, run_gan_loop, save_sample_grid, setup_out_dir
+from .common import (
+    HostFeed,
+    dir_feed,
+    gan_step_fn,
+    native_feed,
+    pick_scorer,
+    require_device,
+    run_gan_loop,
+    save_sample_grid,
+    setup_out_dir,
+)
 
-__all__ = ["App64", "Config", "check_supported", "main", "make_test_fn", "parse_config", "pick_arch", "setup"]
+__all__ = ["App64", "Config", "check_supported", "init_params", "main", "make_step_fn", "make_test_fn", "parse_config",
+           "pick_arch", "setup"]
 
 CHW = (3, 64, 64)
 N_POOL = 4096
 GEN_CHUNK = 100  # images per generator call in the IS/FID eval (batch statistics!)
 N_GRID = 64
-ARCHS = ("good", "dcgan", "crippled", "fc", "multiplicative")
+ARCHS = ("good", "dcgan", "crippled", "fc", "multiplicative", "resnet101")
+INPUTS = ("hbm", "native", "dir")
 
 
 @dataclass(frozen=True)
@@ -106,14 +131,11 @@ def parse_config(argv=None) -> Config:
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for what the port lacks, naming its
-    ROADMAP item; ``ValueError`` for what the JAX app refuses too."""
-    if cfg.ARCH == "resnet101":
-        raise NotImplementedError("ARCH resnet101 is not ported yet: ROADMAP Queue 1 item 14")
+    ROADMAP item; ``ValueError`` for an unknown ``ARCH`` or ``input``."""
     if cfg.ARCH not in ARCHS:
         raise ValueError(f"unknown ARCH {cfg.ARCH!r}")
-    if cfg.DATA_DIR or cfg.input != "hbm":
-        raise NotImplementedError("DATA_DIR and input other than 'hbm' (the image-directory reader, "
-                                  "the native pipeline) are not ported yet: ROADMAP Queue 1 item 14")
+    if cfg.input not in INPUTS:
+        raise ValueError(f"unknown input {cfg.input!r} (one of {INPUTS})")
     if cfg.REMAT or cfg.OPT_STATE_DTYPE != "float32":
         raise NotImplementedError("REMAT and OPT_STATE_DTYPE are not ported yet: ROADMAP Queue 1 item 17")
 
@@ -130,8 +152,11 @@ def pick_arch(cfg: Config):
         "fc": lambda p, n, rand, noise=None: fc.fc_generator(p, n, rand, noise=noise),
         "multiplicative": lambda p, n, rand, noise=None: dcgan.multiplicative_dcgan64_generator(
             p, n, rand, dim=dim, noise=noise),
+        "resnet101": lambda p, n, rand, noise=None: good64.resnet101_generator(p, n, rand, dim=dim, noise=noise),
     }
-    if cfg.ARCH == "good":
+    if cfg.ARCH == "resnet101":
+        disc = lambda p, x, rand: good64.resnet101_discriminator(p, x, rand, dim=dim)
+    elif cfg.ARCH == "good":
         disc = lambda p, x, rand: good64.discriminator(p, x, rand, dim=dim, mode=mode,
                                                        fuse_meanpool=cfg.FUSE_MEANPOOL)
     elif cfg.ARCH == "multiplicative":
@@ -144,17 +169,28 @@ def pick_arch(cfg: Config):
 class App64(NamedTuple):
     trainer: GanTrainer
     state: GanState
-    sampler: DeviceSampler
+    sampler: DeviceSampler | None  # the hbm path's
     rand: Randomness
-    pool: tuple  # (flat uint8 [4096, 12288], labels [4096]) on the host
+    pool: tuple | None  # (flat uint8 [4096, 12288], labels [4096]) on the host; None on the directory path
+    feed: HostFeed | None  # the native and directory paths'
+
+
+def init_params(cfg: Config) -> dict:
+    """Fresh G and D parameters of ``cfg.ARCH`` in the JAX layout."""
+    if cfg.ARCH == "good":
+        return good64.init_params(cfg.DIM, cfg.MODE, cfg.seed)
+    if cfg.ARCH == "resnet101":
+        return good64.resnet101_init_params(cfg.DIM, cfg.seed)
+    return dcgan.init_params(cfg.ARCH, cfg.DIM, cfg.MODE, cfg.seed)
 
 
 def setup(cfg: Config, device, pool: tuple | None = None) -> App64:
-    """Fresh trainer and state, the pool (the synthetic 4,096 unless
-    ``pool`` gives ``(flat uint8 images, labels)``), its device-resident
-    sampler and the base randomness of a run of ``cfg`` on ``device``.
-    Sets the process-wide precision policy: bf16 where ``cfg.BF16`` and the
-    device is CUDA, else fp32."""
+    """Fresh trainer and state, the input path (see the module's
+    docstring; ``pool`` gives the hbm and native paths' ``(flat uint8
+    images, labels)`` in place of the synthetic 4,096) and the base
+    randomness of a run of ``cfg`` on ``device``.  Sets the process-wide
+    precision policy: bf16 where ``cfg.BF16`` and the device is CUDA, else
+    fp32."""
     check_supported(cfg)
     device = torch.device(device)
     default_policy(enable_bf16=cfg.BF16 and device.type == "cuda")
@@ -164,34 +200,30 @@ def setup(cfg: Config, device, pool: tuple | None = None) -> App64:
         mode=cfg.MODE, batch_size=cfg.BATCH_SIZE, critic_iters=cfg.CRITIC_ITERS,
         lambda_gp=cfg.LAMBDA, lambda_ct=cfg.LAMBDA_2, factor_m=cfg.Factor_M, iters=cfg.ITERS,
     )
-    if cfg.ARCH == "good":
-        params = good64.init_params(cfg.DIM, cfg.MODE, cfg.seed)
-    else:
-        params = dcgan.init_params(cfg.ARCH, cfg.DIM, cfg.MODE, cfg.seed)
-    tensors = {k: v.to(device) for k, v in from_jax_params(params).items()}
+    tensors = {k: v.to(device) for k, v in from_jax_params(init_params(cfg)).items()}
     gparams, dparams, rest = split_params(tensors, "Generator", "Discriminator")
     if rest:
         raise RuntimeError(f"parameters outside G and D: {sorted(rest)}")
     trainer = GanTrainer(gen_fn, disc_fn, gcfg)
     critic_iters = 1 if cfg.MODE == "dcgan" else cfg.CRITIC_ITERS
-    pool = pool or synthetic_images(N_POOL, 3, 64, seed=cfg.seed)
-    sampler = DeviceSampler([pool[0]], cfg.BATCH_SIZE, critic_iters, seed=cfg.seed, device=device)
+    sampler = feed = None
+    if not cfg.DATA_DIR and cfg.input == "hbm":
+        pool = pool or synthetic_images(N_POOL, 3, 64, seed=cfg.seed)
+        sampler = DeviceSampler([pool[0]], cfg.BATCH_SIZE, critic_iters, seed=cfg.seed, device=device)
+    elif not cfg.DATA_DIR and cfg.input == "native" and native_available():
+        pool = pool or synthetic_images(N_POOL, 3, 64, seed=cfg.seed)
+        feed = native_feed(NativePipeline(pool[0], None, cfg.BATCH_SIZE, critic_iters, chw=CHW, flip=True,
+                                          seed=cfg.seed), device)
+    else:
+        pool = None
+        feed = dir_feed(cfg.DATA_DIR, cfg.BATCH_SIZE, critic_iters, 64, cfg.seed, device)
     rand = Randomness(cfg.seed, device, cuda_dropout=cfg.CUDA_DROPOUT)
-    return App64(trainer, trainer.init_state(gparams, dparams), sampler, rand, pool)
+    return App64(trainer, trainer.init_state(gparams, dparams), sampler, rand, pool, feed)
 
 
 def make_step_fn(app: App64):
-    """``step_fn(state, rand)`` for the train loop: the batch of the
-    state's step from the pool, scaled and flipped, then one iteration,
-    every draw from ``rand.for_step(state.step)``."""
-
-    def step_fn(state: GanState, rand: Randomness):
-        rand = rand.for_step(state.step)
-        raw = app.sampler.sample(state.step)
-        real = scale_and_flip(raw, rand.flip(raw.shape[0] * raw.shape[1]), CHW)
-        return state, app.trainer.step(state, real, rand)
-
-    return step_fn
+    """``common.gan_step_fn`` at this app's image shape."""
+    return gan_step_fn(app, CHW)
 
 
 def generate_images(trainer: GanTrainer, state: GanState, n: int, device) -> torch.Tensor:
@@ -218,7 +250,8 @@ def make_test_fn(cfg: Config, app: App64, scorer, out_dir: str):
         if scorer is not None and iteration % cfg.inception_every == cfg.inception_every - 1:
             fakes = generate_images(trainer, state, cfg.inception_samples, device)
             metrics["inception score"] = scorer.inception_score(fakes)[0]
-            metrics["fid"] = float(scorer.fid(app.pool[0][: cfg.inception_samples], fakes))
+            if app.pool is not None:
+                metrics["fid"] = float(scorer.fid(app.pool[0][: cfg.inception_samples], fakes))
         return metrics
 
     return test_fn
@@ -236,8 +269,15 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     scorer = None
     if cfg.inception_every:
         scorer = pick_scorer(3, 64, out_dir, train_data=app.pool, device=device)
-    return run_gan_loop(cfg, app.state, make_step_fn(app), app.rand,
-                        make_test_fn(cfg, app, scorer, out_dir), out_dir, device)
+        if scorer.params is None:
+            print("IS cadence disabled: no inception file and no labeled data")
+            scorer = None
+    try:
+        return run_gan_loop(cfg, app.state, make_step_fn(app), app.rand,
+                            make_test_fn(cfg, app, scorer, out_dir), out_dir, device)
+    finally:
+        if app.feed is not None:
+            app.feed.close()
 
 
 if __name__ == "__main__":

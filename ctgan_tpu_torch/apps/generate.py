@@ -1,11 +1,14 @@
 """Sample generation from a trained checkpoint, the serving path
 (counterpart of ``ctgan_tpu/apps/generate.py``), for ``--model
 cifar_resnet`` (the flagship), ``good64`` (the 64 px "Good" ResNet),
-``mnist`` and ``cifar`` (the paper's conv generators).
+``mnist`` and ``cifar`` (the paper's conv generators) and ``lsun128`` (the
+128 px LSUN ResNet at its default widths, ``--dim`` unused, as in the JAX
+app).
 
     python -m ctgan_tpu_torch.apps.generate --ckpt runs/ct_gan_cifar_resnet/ckpt/ckpt_1000.npz --n 100
     python -m ctgan_tpu_torch.apps.generate --model good64 --ckpt runs/good64_r5/params_latest.npz
     python -m ctgan_tpu_torch.apps.generate --model mnist --ckpt runs/ct_gan_mnist/params_latest.npz
+    python -m ctgan_tpu_torch.apps.generate --model lsun128 --ckpt runs/wgan_lsun128/params_latest.npz
     python -m ctgan_tpu_torch.apps.generate --batch 1024 --serve_iters 50
 
 ``--ckpt`` takes a checkpoint of either package's train loop (or a
@@ -24,8 +27,8 @@ batch size is part of the result.  The first 100 go to
 (fresh weights when no ``--ckpt`` is given: the same compute) and prints
 one JSON line with the JAX app's keys.
 
-Not ported yet, and refused: the model ``lsun128`` (ROADMAP Queue 1
-items 12b and 14) and ``--aot``/``--aot_save`` (item 12b).
+Not ported yet, and refused: ``--aot``/``--aot_save`` (ROADMAP Queue 1
+item 12b).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from ..bridge import from_jax_params
 from ..core import Randomness, precision_policy, split_params
-from ..models import dcgan, good64, resnet_cifar
+from ..models import dcgan, good64, lsun128, resnet_cifar
 from ..utils.checkpoint import load_checkpoint
 from .common import parse_config, require_device, save_sample_grid
 
@@ -62,14 +65,13 @@ class Config:
     aot: str = ""
 
 
-_NOT_PORTED = {"lsun128": "ROADMAP Queue 1 items 12b and 14 (64 px and 128 px)"}
+LSUN128 = lsun128.Lsun128Config()  # the JAX app serves the default widths
 
-_SHAPES = {"cifar_resnet": (3, 32, 32), "good64": (3, 64, 64), "mnist": (1, 28, 28), "cifar": (3, 32, 32)}
+_SHAPES = {"cifar_resnet": (3, 32, 32), "good64": (3, 64, 64), "mnist": (1, 28, 28), "cifar": (3, 32, 32),
+           "lsun128": (3, 128, 128)}
 
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.model in _NOT_PORTED:
-        raise NotImplementedError(f"--model {cfg.model} is not ported yet: {_NOT_PORTED[cfg.model]}")
     if cfg.model not in _SHAPES:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.aot or cfg.aot_save:
@@ -108,6 +110,8 @@ def _gen_params(cfg: Config, device) -> dict[str, torch.Tensor]:
     elif cfg.model in ("mnist", "cifar"):
         dim = _width_64(cfg) if cfg.model == "mnist" else cfg.dim
         params = split_params(dcgan.init_params(cfg.model, dim, seed=cfg.seed), "Generator")[0]
+    elif cfg.model == "lsun128":
+        params = split_params(lsun128.init_params(LSUN128, seed=cfg.seed), "Generator")[0]
     else:
         mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
         params = split_params(resnet_cifar.init_params(mcfg, cfg.seed), "Generator")[0]
@@ -126,6 +130,8 @@ def _sampler(cfg: Config, params: dict, device):
             return dcgan.mnist_generator(params, n, rand, dim=_width_64(cfg))
         if cfg.model == "cifar":
             return dcgan.cifar_generator(params, n, rand, dim=cfg.dim)
+        if cfg.model == "lsun128":
+            return lsun128.generator(params, n, rand, cfg=LSUN128)
         return resnet_cifar.generator(params, n, rand.labels(n, mcfg.n_labels), mcfg, rand)
 
     @torch.no_grad()

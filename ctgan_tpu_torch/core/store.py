@@ -37,11 +37,14 @@ class ParamInit:
             self.params[name] = np.asarray(make(), dtype="float32")
 
     def conv(self, name: str, input_dim: int, output_dim: int, filter_size: int,
-             *, he_init: bool = True, stride: int = 1) -> None:
+             *, he_init: bool = True, stride: int = 1, gain: float = 1.0, biases: bool = True) -> None:
+        """An HWIO filter, its draw times ``gain`` (the scaled upsample
+        conv's 0.5), then biases unless ``biases`` is off."""
         stdev = conv_filter_stdev(input_dim, output_dim, filter_size, stride, he_init)
         self.add(name + ".Filters", lambda: uniform_stdev(
-            self.rng, stdev, (filter_size, filter_size, input_dim, output_dim)))
-        self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
+            self.rng, stdev, (filter_size, filter_size, input_dim, output_dim)) * gain)
+        if biases:
+            self.add(name + ".Biases", lambda: np.zeros(output_dim, "float32"))
 
     def deconv(self, name: str, input_dim: int, output_dim: int, filter_size: int,
                *, he_init: bool = True, stride: int = 2, biases: bool = True) -> None:

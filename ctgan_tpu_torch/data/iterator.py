@@ -3,6 +3,8 @@
 
 * :class:`EpochIterator`: shuffled epochs of host arrays, drop-last, with
   the JAX package's NumPy permutations, so both give the same batches.
+* :func:`stack_batches`: ``[K, ...]`` stacks of K consecutive batches of
+  a host iterator, one per critic substep.
 * :class:`DeviceSampler`: the set lives on the device.  Each iteration
   takes the next ``critic_iters * batch_size`` slots of a per-epoch
   permutation, as ``[K, B, ...]`` stacks, so no data crosses from the host
@@ -11,12 +13,12 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["DeviceSampler", "EpochIterator", "epoch_batches"]
+__all__ = ["DeviceSampler", "EpochIterator", "epoch_batches", "stack_batches"]
 
 
 class EpochIterator:
@@ -60,6 +62,17 @@ def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int, seed: int):
             yield next(it)
 
     return gen
+
+
+def stack_batches(it: Iterator, k: int):
+    """``[K, ...]`` stacks of ``k`` consecutive batches of ``it`` (tuples
+    stacked field by field), ``ctgan_tpu/data/iterator.py:100-107``."""
+    while True:
+        parts = [next(it) for _ in range(k)]
+        if isinstance(parts[0], tuple):
+            yield tuple(np.stack([p[i] for p in parts]) for i in range(len(parts[0])))
+        else:
+            yield np.stack(parts)
 
 
 class DeviceSampler:

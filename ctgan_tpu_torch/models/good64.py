@@ -1,5 +1,7 @@
 """The 64x64 "Good" ResNet G and D (counterpart of ``good64_generator`` and
-``good64_discriminator`` in ``ctgan_tpu/models/good64.py:36-84``).  NCHW.
+``good64_discriminator`` in ``ctgan_tpu/models/good64.py:36-84``) and the
+101-layer bottleneck ResNet G and D (``resnet101_64_generator`` and
+``_discriminator``, ``ctgan_tpu/models/good64.py:85-138``).  NCHW.
 
 G: a linear layer to ``[4, 4, 8 dim]``, four up-sampling residual blocks
 (8, 4, 2, 1 times ``dim`` channels, 4 -> 64 px) with batch norm, batch
@@ -14,6 +16,13 @@ the examples of each separate pass.
 D's features are flattened in the JAX package's NHWC order, so that
 ``Discriminator.Output.W`` (``[8192, 1]`` at dim 64 in the JAX layout)
 reads the same rows in both packages.
+
+The 101-layer ResNet (``ARCH resnet101``): G a linear layer to ``[4, 4, 8
+dim]``, bottleneck blocks (6 at each of 4, 8, 16 and 32 px, 5 at 64 px, one
+"up" block between) with batch norm, a 1x1 conv to RGB and ``tanh(out /
+5)``; D a 1x1 conv to ``dim / 2`` channels, bottleneck blocks (5 at 64 px, 6
+at each of 32, 16, 8 and 4 px, one "down" block between) with layer norm,
+whatever the mode, and logits divided by 5.  It has no dropout.
 """
 
 from __future__ import annotations
@@ -23,10 +32,18 @@ import torch
 
 from ..core.store import ParamInit
 from ..ops import batchnorm, conv2d, dropout, layernorm, linear
-from .blocks import residual_block, residual_block_params
+from .blocks import (
+    bottleneck_residual_block,
+    bottleneck_residual_block_params,
+    residual_block,
+    residual_block_params,
+)
 from .common import flat_to_nchw, nchw_to_flat, noise_input
 
-__all__ = ["KP", "generator", "discriminator", "init_params", "zero_grad_params"]
+__all__ = [
+    "KP", "discriminator", "generator", "init_params", "resnet101_discriminator", "resnet101_generator",
+    "resnet101_init_params", "zero_grad_params",
+]
 
 NOISE_DIM = 128
 KP = (0.8, 0.5, 0.5)
@@ -120,3 +137,71 @@ def zero_grad_params(mode: str) -> list[str]:
     if mode.lower().startswith("wgan"):
         names.append("Discriminator.Output.b")
     return names
+
+
+def _resnet101_g_blocks(dim: int):
+    """(name, in, out, resample) of the 101-layer G's blocks
+    (``ctgan_tpu/models/good64.py:92-107``)."""
+    out = []
+    stages = ((4, 8 * dim, 4 * dim), (8, 4 * dim, 2 * dim), (16, 2 * dim, dim), (32, dim, dim // 2))
+    for stage, (size, width, cout) in enumerate(stages, start=1):
+        out += [(f"Generator.{size}x{size}_{i}", width, width, None) for i in range(6)]
+        out.append((f"Generator.Up{stage}", width, cout, "up"))
+    out += [(f"Generator.64x64_{i}", dim // 2, dim // 2, None) for i in range(5)]
+    return out
+
+
+def _resnet101_d_blocks(dim: int):
+    """(name, in, out, resample) of the 101-layer D's blocks
+    (``ctgan_tpu/models/good64.py:119-136``)."""
+    out = [(f"Discriminator.64x64_{i}", dim // 2, dim // 2, None) for i in range(5)]
+    widths = ((32, dim // 2, dim), (16, dim, 2 * dim), (8, 2 * dim, 4 * dim), (4, 4 * dim, 8 * dim))
+    for stage, (size, cin, cout) in enumerate(widths, start=1):
+        out.append((f"Discriminator.Down{stage}", cin, cout, "down"))
+        out += [(f"Discriminator.{size}x{size}_{i}", cout, cout, None) for i in range(6)]
+    return out
+
+
+def resnet101_generator(p, n_samples: int, rand, *, dim: int = 64,
+                        noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Flat ``[n, 12288]`` images in [-1, 1]."""
+    z = noise_input(n_samples, NOISE_DIM, noise, rand)
+    out = linear(z, p["Generator.Input.W"], p["Generator.Input.b"])
+    out = out.reshape(-1, 4, 4, 8 * dim).permute(0, 3, 1, 2)
+    for name, cin, cout, resample in _resnet101_g_blocks(dim):
+        out = bottleneck_residual_block(p, name, out, input_dim=cin, output_dim=cout, resample=resample,
+                                        normalize=_batchnorm(p))
+    out = conv2d(out, p["Generator.Out.Filters"], p["Generator.Out.Biases"])
+    return nchw_to_flat(torch.tanh(out / 5.0))
+
+
+def resnet101_discriminator(p, inputs: torch.Tensor, rand, *, dim: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(logits / 5 [N], features [N, 16 * 8 dim])``; no dropout, so
+    ``rand`` is not read."""
+    norm = _d_normalize(p, "wgan-ct")
+    out = flat_to_nchw(inputs, 3, 64, 64)
+    out = conv2d(out, p["Discriminator.In.Filters"], p["Discriminator.In.Biases"])
+    for name, cin, cout, resample in _resnet101_d_blocks(dim):
+        out = bottleneck_residual_block(p, name, out, input_dim=cin, output_dim=cout, resample=resample,
+                                        normalize=norm)
+    features = out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)
+    logits = linear(features, p["Discriminator.Output.W"], p["Discriminator.Output.b"])
+    return (logits / 5.0).reshape(-1), features
+
+
+def resnet101_init_params(dim: int = 64, seed: int = 0) -> dict[str, np.ndarray]:
+    """Fresh G and D parameters of the 101-layer ResNet in the JAX layout,
+    equal to ``init_context(seed)``'s, G first."""
+    init = ParamInit(seed)
+    init.linear("Generator.Input", NOISE_DIM, 4 * 4 * 8 * dim)
+    for name, cin, cout, resample in _resnet101_g_blocks(dim):
+        bottleneck_residual_block_params(init, name, input_dim=cin, output_dim=cout, filter_size=3,
+                                         resample=resample, norm=init.norm)
+    init.conv("Generator.Out", dim // 2, 3, 1, he_init=False)
+    init.conv("Discriminator.In", 3, dim // 2, 1, he_init=False)
+    for name, cin, cout, resample in _resnet101_d_blocks(dim):
+        bottleneck_residual_block_params(init, name, input_dim=cin, output_dim=cout, filter_size=3,
+                                         resample=resample, norm=init.norm)
+    init.linear("Discriminator.Output", 4 * 4 * 8 * dim, 1)
+    return init.params
+

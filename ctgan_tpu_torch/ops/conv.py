@@ -1,5 +1,6 @@
 """Convolutions (counterpart of ``conv2d``, ``conv_mean_pool2d``,
-``mean_pool_conv2d`` and ``deconv2d`` in ``ctgan_tpu/ops/conv.py``).
+``mean_pool_conv2d``, ``deconv2d`` and ``upsample_conv2d`` in
+``ctgan_tpu/ops/conv.py``).
 
 NCHW activations and OIHW filters; ``ctgan_tpu_torch.bridge`` converts the
 JAX package's HWIO filters.  Padding is TensorFlow's SAME, made explicit:
@@ -7,7 +8,8 @@ JAX package's HWIO filters.  Padding is TensorFlow's SAME, made explicit:
 one more row at the bottom than at the top.
 
 The two fused forms rewrite a conv followed or preceded by a 2x2 mean pool
-as one stride-2 conv with a transformed filter.  The transform is plain
+as one stride-2 conv with a transformed filter; ``upsample_conv2d``
+rewrites a conv of the 2x nearest upsample as a conv on the small input.  The transform is plain
 tensor math on the fp32 filter; the parameters are those of the unfused
 conv, so both arms share checkpoints.
 
@@ -19,13 +21,15 @@ is added afterwards in the conv output's dtype, as the JAX package adds it
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.matmul import conv as _conv
 from ..core.matmul import conv_transpose as _conv_transpose
+from .pool import depth_to_space
 
-__all__ = ["same_padding", "conv2d", "conv_mean_pool2d", "deconv2d", "mean_pool_conv2d"]
+__all__ = ["same_padding", "conv2d", "conv_mean_pool2d", "deconv2d", "mean_pool_conv2d", "upsample_conv2d"]
 
 
 def same_padding(size: int, filter_size: int, stride: int) -> tuple[int, int]:
@@ -98,17 +102,55 @@ def deconv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, st
     filter into what it calls OIHW by ``permute(3, 2, 0, 1)``, which for a
     transposed conv is ``[in, out, kH, kW]``, the layout
     ``F.conv_transpose2d`` takes, with no spatial flip.  That forward conv
-    pads ``2H`` asymmetrically, (1, 2) for a 5x5 filter at stride 2, so the
-    transposed conv crops that leading pad from its full ``2H + 3`` output
-    (``padding=1``) and then keeps the first ``2H`` rows and columns.
-    ``output_padding`` cannot express it: ``padding=2, output_padding=1``
-    has the right shape and is shifted by one pixel.  The JAX models use 5x5
-    filters at stride 2 only, and nothing else is accepted."""
+    pads ``2H`` asymmetrically, (1, 2) for a 5x5 filter at stride 2 and
+    (0, 1) for a 3x3, so the transposed conv crops that leading pad from its
+    full ``2H - 2 + k`` output (``padding=lead``) and then keeps the first
+    ``2H`` rows and columns.  ``output_padding`` cannot express it: for 5x5,
+    ``padding=2, output_padding=1`` has the right shape and is shifted by one
+    pixel.  The JAX models use odd square filters (5x5 in the DCGAN family,
+    3x3 in the bottleneck blocks) at stride 2 only, and nothing else is
+    accepted."""
     k = w.shape[-1]
-    if k != 5 or w.shape[-2] != 5 or stride != 2:
-        raise ValueError(f"deconv2d takes the JAX models' 5x5 filters at stride 2 (got {k}x{w.shape[-2]}, "
+    if k % 2 != 1 or w.shape[-2] != k or stride != 2:
+        raise ValueError(f"deconv2d takes the JAX models' odd square filters at stride 2 (got {w.shape[-2]}x{k}, "
                          f"stride {stride})")
     h, wd = x.shape[-2:]
     lead = (same_padding(stride * h, k, stride)[0], same_padding(stride * wd, k, stride)[0])
     out = _conv_transpose(x, w, stride=stride, padding=lead)
     return _add_bias(out[:, :, : stride * h, : stride * wd], b)
+
+
+def _upsample_collapse_map(filter_size: int) -> tuple[np.ndarray, int]:
+    """The constant ``M[u, v, a, b, r, c]`` in {0, 1} that rewrites a SAME
+    conv of the 2x nearest upsample as a conv of the small input
+    (``ctgan_tpu/ops/conv.py:30-53``): the upsampled pixel ``p`` reads the
+    small pixel ``p // 2``, so the tap ``u`` of the output row ``2i + a``
+    reads the small row ``i + (a + u - pad) // 2``.  ``M`` sends the tap
+    ``(u, v)`` to position ``(r, c)`` of the parity-``(a, b)`` filter.  Exact
+    for an odd filter, borders included."""
+    pad = (filter_size - 1) // 2
+    offs = {a: [(a + u - pad) // 2 for u in range(filter_size)] for a in (0, 1)}
+    maxoff = max(abs(o) for a in (0, 1) for o in offs[a])
+    ks = 2 * maxoff + 1
+    m = np.zeros((filter_size, filter_size, 2, 2, ks, ks), dtype="float32")
+    for a in (0, 1):
+        for b in (0, 1):
+            for u in range(filter_size):
+                for v in range(filter_size):
+                    m[u, v, a, b, offs[a][u] + maxoff, offs[b][v] + maxoff] = 1.0
+    return m, ks
+
+
+def upsample_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``conv2d(upsample_nearest(x), w, b)`` without the 4x intermediate
+    (``ctgan_tpu/ops/conv.py:56-120``): one SAME conv of the small input
+    with the four parity filters stacked on the output channels, ``(a * 2 +
+    b) * C + o``, then ``depth_to_space``.  The same parameters as the plain
+    path; off in the models, as in the JAX package (``FUSE_UPSAMPLE_CONV =
+    False``)."""
+    k = _require_odd("upsample_conv2d", w)
+    m, ks = _upsample_collapse_map(k)
+    cout, cin = w.shape[:2]
+    w4 = torch.einsum("oiuv,uvabrc->aboirc", w, torch.from_numpy(m).to(w.device, w.dtype))
+    out = depth_to_space(conv2d(x, w4.reshape(4 * cout, cin, ks, ks)), 2)
+    return _add_bias(out, b)

@@ -208,10 +208,10 @@ def test_app_trains_the_dcgan_family_archs(tmp_path, small_pool, arch, mode):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(ARCH="resnet101"), NotImplementedError, "item 14"),
+    (dict(ARCH="resnet101", REMAT=True), NotImplementedError, "item 17"),  # resnet101 is ported
     (dict(ARCH="nope"), ValueError, "unknown ARCH"),
-    (dict(DATA_DIR="/data"), NotImplementedError, "item 14"),
-    (dict(input="native"), NotImplementedError, "item 14"),
+    (dict(DATA_DIR="/data", OPT_STATE_DTYPE="bfloat16"), NotImplementedError, "item 17"),  # DATA_DIR is ported
+    (dict(input="tape"), ValueError, "unknown input"),  # native and dir are ported
     (dict(REMAT=True), NotImplementedError, "item 17"),
     (dict(OPT_STATE_DTYPE="bfloat16"), NotImplementedError, "item 17"),
 ])

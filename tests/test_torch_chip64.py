@@ -69,5 +69,6 @@ def test_profile_64x64_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     assert profile_64x64.main([]) == 1 and "no CUDA device" in capsys.readouterr().err
+    assert profile_64x64.main(["lsun128", "--fp32"]) == 1 and "no CUDA device" in capsys.readouterr().err
     assert profile_flagship.family("void at::native::layer_norm_grad_input_kernel_vectorized") == "layer norm"
     assert profile_flagship.family("sm80_xmma_fprop_implicit_gemm_bf16") == "conv (cuDNN)"

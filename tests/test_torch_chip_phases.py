@@ -198,7 +198,8 @@ ptxas info    : Used 26 registers, used 0 barriers
     assert chip_smoke.ptxas_registers(report) == {"_ZN1a19dropout_mask_kernelItEEvPT_lPKjijf": 24,
                                                   "_ZN1a21philox_uniform_kernelEPflPKjif": 26}
     shapes = chip_smoke.launch_shapes()
-    assert len(shapes) == 36 and shapes[-1] == ("philox_uniform", (640, 3072), torch.float32)
+    assert len(shapes) == 38 and shapes[-1] == ("philox_uniform", (640, 3072), torch.float32)
+    assert ("dropout_mask", (64, 1024, 8, 8), torch.bfloat16) in shapes  # the 128 px critic's
     assert ("dropout_mask", (500, 128, 16, 16), torch.float32) in shapes  # the SSL classifier's at its init
     assert ("dropout_mask", (64, 256, 16, 16), torch.bfloat16) in shapes  # the 64 px critic's
     assert ("dropout_mask", (50, 128, 7, 7), torch.float32) in shapes  # MNIST's

@@ -294,10 +294,14 @@ def test_deconv2d_filter_round_trips_the_bridge():
 
 
 def test_deconv2d_refuses_what_the_models_never_use():
+    """Odd square filters at stride 2 only: the DCGAN family's 5x5 and the
+    bottleneck block's 3x3 (tests/test_torch_resnet101.py)."""
     x = torch.zeros(1, 4, 4, 4)
-    with pytest.raises(ValueError, match="5x5 filters at stride 2"):
-        port_ops.deconv2d(x, torch.zeros(4, 2, 3, 3))
-    with pytest.raises(ValueError, match="5x5 filters at stride 2"):
+    with pytest.raises(ValueError, match="odd square filters at stride 2"):
+        port_ops.deconv2d(x, torch.zeros(4, 2, 4, 4))
+    with pytest.raises(ValueError, match="odd square filters at stride 2"):
+        port_ops.deconv2d(x, torch.zeros(4, 2, 5, 3))
+    with pytest.raises(ValueError, match="odd square filters at stride 2"):
         port_ops.deconv2d(x, torch.zeros(4, 2, 5, 5), stride=1)
 
 

@@ -159,7 +159,7 @@ def test_load_gen_params_reads_both_packages(tmp_path, jax_blob):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(model="mnist", aot="x.bin"), NotImplementedError, "ROADMAP"),  # mnist is served
     (dict(model="good64", aot="x.bin"), NotImplementedError, "ROADMAP"),  # good64 is served
-    (dict(model="lsun128"), NotImplementedError, "ROADMAP"),
+    (dict(model="lsun128", aot="x.bin"), NotImplementedError, "ROADMAP"),  # lsun128 is served
     (dict(model="cifar", aot_save="x.bin"), NotImplementedError, "ROADMAP"),  # cifar is served
     (dict(aot="x.bin"), NotImplementedError, "ROADMAP"),
     (dict(aot_save="x.bin"), NotImplementedError, "ROADMAP"),

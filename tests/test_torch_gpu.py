@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -219,8 +220,6 @@ def test_64px_step_on_the_card_goes_through_the_kernel(cuda):
     """One iteration of the 64 px app's step at dim 8 (5 critic
     substeps, wgan-ct): 63 mask launches, no uniform draws; finite metrics,
     in fp32 and bf16."""
-    import numpy as np
-
     pool = (np.random.default_rng(0).integers(0, 256, (64, 12288), dtype=np.uint8), np.zeros(64, np.int64))
     run = app64.setup(app64.Config(DIM=8, BATCH_SIZE=4, BF16=False), cuda, pool)
     step = app64.make_step_fn(run)
@@ -267,3 +266,41 @@ def test_dcgan_step_on_the_card_goes_through_the_kernel(cuda, model):
             _, metrics = step(run.state, run.rand)
         assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
         assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+def test_lsun128_step_on_the_card_goes_through_the_kernel(cuda):
+    """One iteration of the 128 px LSUN app's step at small widths (batch
+    4, 5 critic substeps): 63 mask launches, no uniform draws; finite
+    metrics, in fp32 and bf16."""
+    from ctgan_tpu_torch.apps import wgan_lsun128
+    from ctgan_tpu_torch.models import lsun128
+
+    small = lsun128.Lsun128Config(dim_g_4=32, dim_g_8=16, dim_g_16=8, dim_g_32=8, dim_g_64=8, dim_d_64=8,
+                                  dim_d_32=8, dim_d_16=16, dim_d_8=32)
+    pool = np.random.default_rng(0).integers(0, 256, (64, 3 * 128 * 128), dtype=np.uint8)
+    model_config = wgan_lsun128.model_config
+    wgan_lsun128.model_config = lambda cfg: small
+    try:
+        run = wgan_lsun128.setup(wgan_lsun128.Config(BATCH_SIZE=4, BF16=False), cuda, pool)
+    finally:
+        wgan_lsun128.model_config = model_config
+    step = wgan_lsun128.make_step_fn(run)
+    for policy in ("float32", "bfloat16"):
+        before, uniforms = dropout_mask.launches, philox_uniform.launches
+        with precision_policy(policy):
+            _, metrics = step(run.state, run.rand)
+        assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
+        assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+def test_resnet101_step_on_the_card_launches_no_mask(cuda):
+    """One iteration of the 64 px app's ``ARCH resnet101`` at dim 16, batch
+    4: its D has no dropout."""
+    from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
+
+    pool = (np.random.default_rng(0).integers(0, 256, (64, 3 * 64 * 64), dtype=np.uint8), np.zeros(64, np.int64))
+    run = app64.setup(app64.Config(ARCH="resnet101", DIM=16, BATCH_SIZE=4, BF16=False), cuda, pool)
+    before = dropout_mask.launches
+    _, metrics = app64.make_step_fn(run)(run.state, run.rand)
+    assert dropout_mask.launches == before
+    assert all(math.isfinite(float(v)) for v in metrics.values())

@@ -32,6 +32,7 @@ def test_the_scan_sees_the_port():
     assert {"ops/noise.py", "ops/weightnorm.py", "train/wn_init.py", "train/trainer_semisup.py",
             "models/classifiers.py", "losses/semisup.py", "apps/ssl_common.py", "apps/ct_mnist_ssl.py",
             "apps/ct_cifar_ssl.py", "apps/profile_ssl.py"} <= names
+    assert {"models/lsun128.py", "apps/wgan_lsun128.py", "data/images_dir.py", "data/native.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
