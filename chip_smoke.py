@@ -143,7 +143,28 @@ Phases, each printed with its seconds:
     (dim 64, batch 64, bf16) for 3 iterations: no dropout, 0 mask launches;
 27. train64_native: the 64 px app's ``input native`` for 2 iterations
     through ``native/ctgan_io.cpp`` built by ``data.native`` (the phase
-    fails if the library did not build).
+    fails if the library did not build);
+28. captured_equal_flagship|good64|mnist|cifar|lsun128|ssl_cifar|ssl_mnist
+    (after cuda_vs_cpu_lsun128): each trainer at its app's defaults (full
+    width; bf16 for the GANs) from one state, eager (``jit_step=False``)
+    and captured in a CUDA graph (``train.capture``), cuDNN deterministic:
+    the flagship 10 iterations, ``good64`` 4, MNIST and CIFAR-10 conv 10,
+    128 px 3 from step 1, the CIFAR-10 classifier 25 steps (one chunk of
+    25, its mean compared too), MNIST's 50: max diff 0 over every array of
+    the state and every metric, the launches per iteration (33 masks and 5
+    uniforms, 63, 63, 63, 63, 18, 0) in both arms; s/iter (wall over the
+    replays, synchronised at both ends), the host's enqueue ms per
+    iteration and the peak device memory of each arm;
+29. captured_memory: those peaks for the flagship, 64 px and 128 px steps;
+30. epoch_scan_equal (after train_ssl_mnist): the MNIST app's first epoch
+    with ``epoch_scan`` against train_ssl_mnist's (``chunk`` 1): every
+    array of the state equal, the logged means within 1e-6 relative.
+
+Every app run above trains as the app does on the card: each iteration
+after one or two eager warm-up iterations is a replay of one captured CUDA
+graph (``LoopConfig.jit_step``), and so do resume_equal and
+resume_equal_gan (the resumed leg's first iteration eager, the
+uninterrupted leg's captured).
 
 The last lines are the card, the kernel record and ``{"ok": true, ...}``.
 Any failure raises and the script exits non-zero; without a CUDA device it
@@ -169,6 +190,7 @@ import tempfile
 import time
 import zlib
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -181,9 +203,10 @@ from ctgan_tpu_torch.apps import ct_gan_mnist as mnist_app
 from ctgan_tpu_torch.apps import ct_mnist_ssl as mnist_ssl_app
 from ctgan_tpu_torch.apps import generate, ssl_common
 from ctgan_tpu_torch.apps import wgan_lsun128 as app128
+from ctgan_tpu_torch.apps.common import gan_batches
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
-from ctgan_tpu_torch.core.rng import SEED_SLOTS
+from ctgan_tpu_torch.core.rng import RING, SEED_SLOTS
 from ctgan_tpu_torch.data import DeviceSampler, cifar10, mnist, native, synthetic_images
 from ctgan_tpu_torch.eval import TrainedScorer
 from ctgan_tpu_torch.kernels import (
@@ -199,6 +222,7 @@ from ctgan_tpu_torch.kernels.sass import disassemble, kernel_counts, op_bound_ms
 from ctgan_tpu_torch.models import classifiers, dcgan, good64, lsun128, resnet_cifar
 from ctgan_tpu_torch.train import (
     AcganConfig,
+    AcganState,
     AcganTrainer,
     GanConfig,
     GanState,
@@ -207,6 +231,8 @@ from ctgan_tpu_torch.train import (
     SslState,
     make_ssl_trainer,
 )
+from ctgan_tpu_torch.train import capture as capture_mod
+from ctgan_tpu_torch.train.capture import CapturedStep
 from ctgan_tpu_torch.train.optim import adam_mismatches
 from ctgan_tpu_torch.utils import load_checkpoint, make_grid, save_checkpoint
 
@@ -988,16 +1014,67 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
+def _sync(device):
+    """``torch.cuda.synchronize`` on a CUDA ``device``, else nothing."""
+    return torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+
+
+@contextlib.contextmanager
+def _timed_steps(device, step_s: list, per_step: list | None = None, first: list | None = None):
+    """Each step runner made inside (``train.capture.step_runner``: the
+    train loop's and the semi-supervised apps', captured on the card) times
+    every call between two synchronisations into ``step_s``; ``per_step``
+    gets each call's mask launches (a replay's counted), ``first`` the wall
+    clock of the first call."""
+    make, sync = capture_mod.step_runner, _sync(device)
+
+    def timed(*args, **kwargs):
+        run = make(*args, **kwargs)
+
+        def call(state, *inputs):
+            sync()
+            if first is not None and not first:
+                first.append(time.time())  # the records' wall clock
+            before, t0 = dropout_mask.launches, time.perf_counter()
+            out = run(state, *inputs)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            if per_step is not None:
+                per_step.append(dropout_mask.launches - before)
+            return out
+
+        return call
+
+    capture_mod.step_runner = timed
+    try:
+        yield
+    finally:
+        capture_mod.step_runner = make
+
+
+def _first_timed(start: int, iters: int, device) -> int:
+    """The first iteration a run's s/iter counts: on the card the first
+    replay of the captured step (after one warm-up iteration, two from step
+    0, and the capture), else the first after a fresh run's iteration 0;
+    where no replay runs, those iterations."""
+    eager = start + (start == 0 and iters - start > 1)
+    if torch.device(device).type != "cuda":
+        return eager
+    replay = start + (2 if start == 0 else 1) + 1
+    return replay if replay < iters else eager
+
+
 def _run_main(cfg: app.Config, device) -> tuple:
-    """``app.main`` with the kernels' launches counted and stdout kept.
-    Returns (state, records, launches of the mask kernel, launches of the
-    uniform kernel, stdout, seconds)."""
+    """``app.main`` with the kernels' launches counted, each step timed
+    (``_timed_steps``) and stdout kept.  Returns (state, records, launches
+    of the mask kernel, launches of the uniform kernel, step seconds,
+    stdout, seconds)."""
     dropout_mask.launches = philox_uniform.launches = 0
-    tee = _Tee(sys.stdout)
+    tee, step_s = _Tee(sys.stdout), []
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
+    with contextlib.redirect_stdout(tee), _timed_steps(device, step_s):
         state, records = app.main(cfg=cfg, device=device)
-    return (state, records, dropout_mask.launches, philox_uniform.launches, tee.buf.getvalue(),
+    return (state, records, dropout_mask.launches, philox_uniform.launches, step_s, tee.buf.getvalue(),
             time.perf_counter() - t0)
 
 
@@ -1058,7 +1135,7 @@ def phase_train(device, cfg: app.Config) -> dict:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state, records, launches, uniforms, stdout, seconds = _run_main(cfg, device)
+    state, records, launches, uniforms, step_s, stdout, seconds = _run_main(cfg, device)
     fit = re.search(r"IS scorer: fitted in ([0-9.]+) s", stdout)
     expected = (_expected_launches(cfg, 0, device), _expected_uniform_launches(cfg, 0, device))
     if (launches, uniforms) != expected:
@@ -1098,9 +1175,9 @@ def phase_train(device, cfg: app.Config) -> dict:
     if samples.shape != (100, 3072) or not bool(torch.isfinite(samples).all()) or samples.abs().max() > 1:
         raise AssertionError("generator samples are not finite [100, 3072] values in [-1, 1]")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    steps = [r["time"] for r in records if 1 <= r["iteration"] <= 3]
-    return dict(launches=launches, uniform_launches=uniforms,
-                s_per_iter=float(np.mean(steps)) if steps else None,
+    first = _first_timed(0, cfg.ITERS, device)
+    return dict(launches=launches, uniform_launches=uniforms, timed=f"{first}-{cfg.ITERS - 1}",
+                s_per_iter=float(np.mean(step_s[first:])) if step_s[first:] else None,
                 peak_bytes=peak, last=last, seconds=seconds, evals=evals,
                 scorer_fit_s=float(fit.group(1)) if fit else None)
 
@@ -1110,7 +1187,7 @@ def phase_resume(device, cfg: app.Config) -> dict:
     resume where the last checkpoint left off and train on."""
     start = cfg.ITERS - cfg.ITERS % cfg.save_every if cfg.save_every else 0
     more = dataclasses.replace(cfg, ITERS=cfg.ITERS + (RESUME_ITERS - TRAIN_ITERS))
-    state, records, launches, uniforms, stdout, seconds = _run_main(more, device)
+    state, records, launches, uniforms, _, stdout, seconds = _run_main(more, device)
     want = f"resumed from {Path(cfg.out_dir) / 'ckpt' / f'ckpt_{start}.npz'} at iteration {start}"
     if want not in stdout:
         raise AssertionError(f"no line {want!r} in the resumed run's output")
@@ -1127,8 +1204,10 @@ def phase_resume_equal(device, *, precision="float32", dim=16, batch=4, n_critic
                        seed=0) -> float:
     """``iters`` iterations uninterrupted, against ``iters // 2``, a
     checkpoint written and read back into a fresh trainer, and the rest;
-    cuDNN deterministic, under ``precision``.  Params by
-    ``adam_mismatches``.  Returns the largest param difference."""
+    cuDNN deterministic, under ``precision``; each run through the step
+    runner the loop uses, captured on the card (so a captured iteration
+    meets an eager warm-up one).  Params by ``adam_mismatches``.  Returns
+    the largest param difference."""
     device = torch.device(device)
     mcfg = resnet_cifar.ResnetCifarConfig(dim_g=dim, dim_d=dim)
     params = resnet_cifar.init_params(mcfg, seed)
@@ -1150,8 +1229,12 @@ def phase_resume_equal(device, *, precision="float32", dim=16, batch=4, n_critic
     rand = Randomness(seed, device)
 
     def run(trainer, state, start, stop):
+        def step_fn(state, idx, rand):
+            return trainer.step(state, *sampler.gather(idx), rand.for_step(state.step))
+
+        step = capture_mod.step_runner(step_fn, rand, name="resume_equal")
         for it in range(start, stop):
-            trainer.step(state, *sampler.sample(it), rand.for_step(state.step))
+            step(state, sampler.host_indices(it))
 
     with precision_policy(precision):
         old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -1305,31 +1388,12 @@ def _run_gan_main(module, cfg, device) -> tuple:
     synchronisations, and stdout kept.  Returns (state, records, mask
     launches, uniform launches, step seconds per iteration, stdout,
     seconds)."""
-    make_step_fn, step_s = module.make_step_fn, []
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
-
-    def timed(*args):
-        step = make_step_fn(*args)
-
-        def step_fn(state, rand):
-            sync()
-            t0 = time.perf_counter()
-            out = step(state, rand)
-            sync()
-            step_s.append(time.perf_counter() - t0)
-            return out
-
-        return step_fn
-
+    step_s = []
     dropout_mask.launches = philox_uniform.launches = 0
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
-    module.make_step_fn = timed
-    try:
-        with contextlib.redirect_stdout(tee):
-            state, records = module.main(cfg=cfg, device=device)
-    finally:
-        module.make_step_fn = make_step_fn
+    with contextlib.redirect_stdout(tee), _timed_steps(device, step_s):
+        state, records = module.main(cfg=cfg, device=device)
     return (state, records, dropout_mask.launches, philox_uniform.launches, step_s, tee.buf.getvalue(),
             time.perf_counter() - t0)
 
@@ -1356,7 +1420,7 @@ def _gan_run_report(run: tuple, cfg, start: int, per_iteration: int, device, *, 
     for k in metrics:
         if not math.isfinite(last[k]):
             raise AssertionError(f"{k} = {last[k]}")
-    first = start + (start == 0 and cfg.ITERS > 1)  # a fresh run's iteration 0 warms cuDNN up
+    first = _first_timed(start, cfg.ITERS, device)
     timed = step_s[first - start:]
     return dict(state=state, launches=launches, uniform_launches=uniforms, per_iteration=per_iteration,
                 timed=f"{first}-{cfg.ITERS - 1}", s_per_iter=float(np.mean(timed)),
@@ -1422,16 +1486,17 @@ def phase_resume_equal_gan(device, *, precision="float32", dim=16, batch=4, n_cr
     the pool batch, scaling and flips, then ``GanTrainer.step``) at
     ``dim``: ``iters`` iterations uninterrupted against ``iters // 2``, a
     checkpoint written and read back into a fresh app, and the rest, cuDNN
-    deterministic.  Returns the largest param difference, which must be 0."""
+    deterministic, through the loop's step runner (captured on the card).  Returns the largest param difference, which must be 0."""
     device = torch.device(device)
     data = np.random.default_rng(seed)
     pool = (data.integers(0, 256, (64, 3 * 64 * 64), dtype=np.uint8), data.integers(0, 10, 64))
     cfg = app64.Config(DIM=dim, BATCH_SIZE=batch, CRITIC_ITERS=n_critic, BF16=False, seed=seed)
 
     def run(run_app, state, start, stop):
-        step_fn = app64.make_step_fn(run_app)
-        for _ in range(start, stop):
-            step_fn(state, run_app.rand)
+        step = capture_mod.step_runner(app64.make_step_fn(run_app), run_app.rand, name="resume_equal_gan")
+        batch = gan_batches(run_app)
+        for it in range(start, stop):
+            step(state, *batch(it))
 
     with precision_policy(precision):
         old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -1699,7 +1764,8 @@ def _train64_line(name: str, out: dict) -> str:
 
 
 def _train_line(name: str, out: dict) -> str:
-    return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations 1-3, {out['seconds']:.2f} s for main "
+    return (f"{name}: {out['s_per_iter']:.5f} s/iter over iterations {out['timed']} (each step synchronised), "
+            f"{out['seconds']:.2f} s for main "
             f"(scorer fit {out['scorer_fit_s']} s), peak {out['peak_bytes'] / 2**30:.3f} GiB, "
             f"launches {out['launches']} + {out['uniform_launches']}, evals {json.dumps(out['evals'])}, "
             f"last {json.dumps(out['last'])}")
@@ -2100,34 +2166,12 @@ def _run_ssl_main(module, cfg, device) -> tuple:
     Returns (state, records, mask launches of the run, per-step launches,
     step seconds, seconds from the first step to the last epoch's record,
     stdout, seconds)."""
-    make_step_fn, step_s, per_step, first = ssl_common.make_step_fn, [], [], []
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
-
-    def timed(ssl_app):
-        step = make_step_fn(ssl_app)
-
-        def step_fn(*args):
-            sync()
-            if not first:
-                first.append(time.time())  # the records' wall clock
-            before, t0 = dropout_mask.launches, time.perf_counter()
-            out = step(*args)
-            sync()
-            step_s.append(time.perf_counter() - t0)
-            per_step.append(dropout_mask.launches - before)
-            return out
-
-        return step_fn
-
+    step_s, per_step, first = [], [], []
     dropout_mask.launches = philox_uniform.launches = 0
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
-    ssl_common.make_step_fn = timed
-    try:
-        with contextlib.redirect_stdout(tee):
-            state, records = module.main(cfg=cfg, device=device)
-    finally:
-        ssl_common.make_step_fn = make_step_fn
+    with contextlib.redirect_stdout(tee), _timed_steps(device, step_s, per_step, first):
+        state, records = module.main(cfg=cfg, device=device)
     epochs_s = records[-1]["wall_time"] - first[0] if first else 0.0
     return (state, records, dropout_mask.launches, per_step, step_s, epochs_s, tee.buf.getvalue(),
             time.perf_counter() - t0)
@@ -2232,6 +2276,9 @@ def run_ssl_apps(device, out_dir: str, *, cifar_resume: bool = False) -> dict:
           f"{mnist_cfg.batch_size}, count {mnist_cfg.count}, lr {mnist_cfg.learning_rate} (the defaults), fp32")
     with _cudnn_deterministic():
         runs["train_ssl_mnist"] = _phase("train_ssl_mnist", phase_train_ssl, device, mnist_ssl_app, mnist_cfg)
+        first_epoch = load_checkpoint(f"{mnist_cfg.out_dir}/ssl_state.npz")["state"]
+        scan = _phase("epoch_scan_equal", phase_epoch_scan_equal, device, first_epoch, f"{out_dir}/mnist_scan",
+                      [runs["train_ssl_mnist"]["last"]])
         runs["train_ssl_mnist_resume"] = _phase("train_ssl_mnist_resume", phase_train_ssl, device, mnist_ssl_app,
                                                 dataclasses.replace(mnist_cfg, epochs=2), start=1)
         diff = _phase("resume_equal_ssl", phase_resume_equal_ssl, device, mnist_cfg.out_dir,
@@ -2247,7 +2294,249 @@ def run_ssl_apps(device, out_dir: str, *, cifar_resume: bool = False) -> dict:
                                                 dataclasses.replace(cifar_cfg, epochs=2), start=1)
     te_cfg = cifar_ssl_app.Config(epochs=1, temporal_ensembling=True, out_dir=f"{out_dir}/te")
     runs["train_ssl_te"] = _phase("train_ssl_te", phase_train_ssl, device, cifar_ssl_app, te_cfg)
-    return {"runs": runs, "resume_equal": diff}
+    return {"runs": runs, "resume_equal": diff, "epoch_scan_equal": scan}
+
+
+# ---------------------------------------------------------------- the captured step
+
+class _Trainer(NamedTuple):
+    """One trainer's step as an app runs it: ``step_fn(state, *inputs(step),
+    rand)`` from the state ``state_to_jax`` gave ``blob`` (a ``state_cls``),
+    drawing from ``Randomness(seed)``; ``masks`` and ``uniforms`` kernel
+    launches per iteration on the card."""
+
+    name: str
+    blob: dict
+    state_cls: type
+    step_fn: object
+    inputs: object
+    seed: int
+    masks: int
+    uniforms: int = 0
+
+
+def _metric_row(out) -> torch.Tensor:
+    """A step's metrics (a GAN step's ``(state, metrics)``, a
+    semi-supervised step's ``(metrics, probs, features)``) as one fp32
+    vector, names sorted: a copy, as the loop's ``_Pending.add`` keeps."""
+    metrics = out[1] if isinstance(out[0], (AcganState, GanState)) else out[0]
+    return torch.stack([metrics[k].detach().float() for k in sorted(metrics)])
+
+
+def _tree_leaves(tree) -> list[np.ndarray]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    return [np.asarray(tree, np.float64)]
+
+
+def _captured_arm(device, tr: _Trainer, iters: int, start: int, *, jit_step: bool) -> dict:
+    """``iters`` iterations of ``tr`` from its state at step ``start``
+    through the loop's step runner, captured or not: the final state, every
+    iteration's metrics, and over the iterations after the captured arm's
+    warm-up and capture the seconds per iteration (wall, one
+    synchronisation at each end), the kernels' launches per iteration and
+    the host's ms per iteration to enqueue the first ``RING`` of them (a
+    static provider's ring then holds the host back: later iterations
+    wait for the device); the peak device memory."""
+    sync = _sync(device)
+    state = state_from_jax(tr.blob, device, tr.state_cls)
+    state.step = start
+    run = capture_mod.step_runner(tr.step_fn, Randomness(tr.seed, device), name=tr.name, jit_step=jit_step)
+    first = _first_timed(start, start + iters, device)
+    n, n_enqueue = start + iters - first, min(RING, start + iters - first)
+    rows = []
+    sync()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for it in range(start, start + iters):
+        if it == first:
+            sync()
+            counts, t0 = (dropout_mask.launches, philox_uniform.launches), time.perf_counter()
+        rows.append(_metric_row(run(state, *tr.inputs(it))))
+        if it == first + n_enqueue - 1:
+            enqueue = time.perf_counter() - t0
+    sync()
+    wall = time.perf_counter() - t0
+    out = dict(state=state_to_jax(state), rows=torch.stack(rows).cpu(), s_per_iter=wall / n,
+               enqueue_ms=enqueue / n_enqueue * 1e3, timed=n, masks=(dropout_mask.launches - counts[0]) / n,
+               uniforms=(philox_uniform.launches - counts[1]) / n, captured=isinstance(run, CapturedStep)
+               and run.captured, peak_bytes=torch.cuda.max_memory_allocated(device)
+               if torch.device(device).type == "cuda" else None, traced=None)
+    if out["captured"]:
+        # one more replay, after the state was read: the kernels the device ran in it
+        out["traced"] = _traced_launches(lambda: run(state, *tr.inputs(start + iters)))
+        out["recorded"] = run.launches
+    return out
+
+
+def _traced_launches(fn) -> tuple[int, int]:
+    """The mask and uniform kernels that ``torch.profiler`` sees the device
+    run while ``fn`` runs (a graph replay's kernels included): counted on
+    the device, apart from the wrappers' counters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum("dropout_mask_kernel" in n for n in names), sum("philox_uniform_kernel" in n for n in names)
+
+
+def phase_captured_equal(device, tr: _Trainer, iters: int, start: int = 0, chunk: int = 1) -> dict:
+    """``tr``'s ``iters`` iterations from the same state eager
+    (``jit_step=False``) and captured, cuDNN deterministic: every array of
+    the state (params, moments, ``t``, step) and every iteration's metrics
+    equal (max diff 0; with ``chunk``, the semi-supervised apps' logged
+    chunk means too), the kernels' launches per iteration as expected in
+    both arms; s/iter, enqueue ms and peak memory of each."""
+    device = torch.device(device)
+    with _cudnn_deterministic():
+        eager = _captured_arm(device, tr, iters, start, jit_step=False)
+        captured = _captured_arm(device, tr, iters, start, jit_step=True)
+    want, got = _tree_leaves(eager["state"]), _tree_leaves(captured["state"])
+    if len(got) != len(want):
+        raise AssertionError(f"captured_equal_{tr.name}: the states differ in structure")
+    state_diff = max(float(np.abs(a - b).max()) if a.size else 0.0 for a, b in zip(got, want))
+    metric_diff = float((captured["rows"] - eager["rows"]).abs().max())
+    chunks = [(t0, t0 + chunk) for t0 in range(0, iters - iters % chunk, chunk)]
+    means = [ssl_common.epoch_means(arm["rows"], chunks) for arm in (eager, captured)]
+    on_card = device.type == "cuda"
+    expected = (tr.masks, tr.uniforms) if on_card else (0, 0)
+    for name, arm in (("eager", eager), ("captured", captured)):
+        if (arm["masks"], arm["uniforms"]) != expected:
+            raise AssertionError(f"captured_equal_{tr.name}: {name} launched {arm['masks']}, {arm['uniforms']} "
+                                 f"per iteration, expected {expected}")
+    if on_card and not captured["captured"]:
+        raise AssertionError(f"captured_equal_{tr.name}: the step was not captured")
+    if on_card and not (captured["traced"] == captured["recorded"] == expected):
+        raise AssertionError(f"captured_equal_{tr.name}: a traced replay ran {captured['traced']} mask and uniform "
+                             f"kernels, the capture recorded {captured['recorded']}, expected {expected}")
+    if state_diff != 0 or metric_diff != 0 or means[0] != means[1]:
+        raise AssertionError(f"captured_equal_{tr.name}: captured differs from eager: state {state_diff}, "
+                             f"metrics {metric_diff}, chunk means {means}")
+    gib = lambda b: "not measured" if b is None else f"{b / 2**30:.3f} GiB"
+    print(f"captured_equal_{tr.name} on {device}: {iters} iterations from step {start}, eager and captured: max "
+          f"diff {state_diff} over {len(want)} arrays of the state, {metric_diff} over the metrics"
+          f"{f', chunk of {chunk} means equal' if chunk > 1 else ''}; over the last {captured['timed']}: eager "
+          f"{eager['s_per_iter']:.5f} s/iter ({eager['enqueue_ms']:.3f} ms enqueue), captured "
+          f"{captured['s_per_iter']:.5f} s/iter ({captured['enqueue_ms']:.3f} ms enqueue); "
+          f"{captured['masks']:g} masks + {captured['uniforms']:g} uniforms per iteration"
+          f"{'' if captured['traced'] is None else ', the same in a traced replay'}; peak eager "
+          f"{gib(eager['peak_bytes'])}, captured {gib(captured['peak_bytes'])}", flush=True)
+    out = {k: v for k, v in captured.items() if k not in ("state", "rows")}
+    return dict(out, state_diff=state_diff, metric_diff=metric_diff, arrays=len(want), iters=iters, start=start,
+                eager_s_per_iter=eager["s_per_iter"], eager_enqueue_ms=eager["enqueue_ms"],
+                eager_peak_bytes=eager["peak_bytes"])
+
+
+def _gan_trainer(name: str, run, step_fn, inputs, cfg, masks: int, uniforms: int = 0,
+                 state_cls=GanState) -> _Trainer:
+    return _Trainer(name, state_to_jax(run.state), state_cls, step_fn, inputs, cfg.seed, masks, uniforms)
+
+
+def _ssl_trainer_run(name: str, module, cfg, device, masks: int) -> _Trainer:
+    """A semi-supervised app's step on epoch 0's batches (indices on the
+    device, no ensemble targets)."""
+    ssl_app = module.setup(cfg, device)
+    bs = cfg.batch_size
+    orders = [torch.from_numpy(o).to(device)
+              for o in ssl_common.epoch_orders(cfg.seed, 0, len(ssl_app.train), len(ssl_app.labeled[0]))]
+    inputs = lambda it: (*(o[it * bs:(it + 1) * bs] for o in orders), None)
+    return _Trainer(name, state_to_jax(ssl_app.state), SslState, ssl_common.make_step_fn(ssl_app), inputs,
+                    cfg.seed, masks)
+
+
+def captured_trainers(device) -> dict:
+    """A function per trainer that sets it up at its app's defaults (full
+    width) for ``phase_captured_equal``: ``build() -> (trainer,
+    iterations, start, chunk)``.  The flagship (bf16, 10 iterations), ``good64`` (4), MNIST
+    and CIFAR-10 conv (10 each), 128 px (3 from step 1: one warm-up, the
+    capture, one replay), the CIFAR-10 classifier (25 steps, one chunk of
+    25) and MNIST's (50 steps)."""
+
+    def flagship():
+        cfg = app.Config()
+        fl = app.setup(cfg, device)
+        return _gan_trainer("flagship", fl, app.make_step_fn(fl), gan_batches(fl), cfg,
+                            3 + 6 * cfg.N_CRITIC, cfg.N_CRITIC, AcganState), 10, 0, 1
+
+    def gan(module, name, iters, start=0, to_real=None):
+        def build():
+            cfg = module.Config()
+            run = module.setup(cfg, device)
+            step_fn = module.make_step_fn(run) if to_real is None else mnist_app.make_step_fn(run, to_real)
+            per = lsun128_masks_per_iteration(cfg) if module is app128 else gan_masks_per_iteration(cfg)
+            return _gan_trainer(name, run, step_fn, gan_batches(run), cfg, per), iters, start, 1
+
+        return build
+
+    def ssl(module, name, steps, chunk, masks, **kw):
+        def build():
+            return _ssl_trainer_run(name, module, module.Config(**kw), device, masks), steps, 0, chunk
+
+        return build
+
+    return {
+        "flagship": flagship,
+        "good64": gan(app64, "good64", 4),
+        "mnist": gan(mnist_app, "mnist", 10),
+        "cifar": gan(cifar_app, "cifar", 10, to_real=cifar_app.to_real),
+        "lsun128": gan(app128, "lsun128", 3, start=1),
+        "ssl_cifar": ssl(cifar_ssl_app, "ssl_cifar", 25, 25, ssl_masks_per_step("cifar")),
+        "ssl_mnist": ssl(mnist_ssl_app, "ssl_mnist", 50, 1, 0),
+    }
+
+
+def run_captured_equal(device) -> dict:
+    """``phase_captured_equal`` for each of ``captured_trainers``, each
+    built, compared and dropped in turn (the precision policy is the
+    app's)."""
+    out = {}
+    for name, build in captured_trainers(device).items():
+        def one(build=build):
+            tr, iters, start, chunk = build()
+            return phase_captured_equal(device, tr, iters, start, chunk)
+
+        out[name] = _phase(f"captured_equal_{name}", one)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_captured_memory(captured: dict) -> dict:
+    """The peak device memory of the flagship's, the 64 px and the 128 px
+    steps, captured against eager (``captured_equal``'s arms)."""
+    out = {name: {"eager_gib": None if captured[name]["eager_peak_bytes"] is None
+                  else captured[name]["eager_peak_bytes"] / 2**30,
+                  "captured_gib": None if captured[name]["peak_bytes"] is None
+                  else captured[name]["peak_bytes"] / 2**30}
+           for name in ("flagship", "good64", "lsun128")}
+    print(f"captured_memory: peak device memory, eager and captured: {json.dumps(out)}")
+    return out
+
+
+def phase_epoch_scan_equal(device, first_epoch: dict, out_dir: str, records: list) -> dict:
+    """The MNIST app's first epoch with ``epoch_scan`` (batch 100, the
+    default; captured, as the app runs) against its ``chunk=1`` run
+    (``train_ssl_mnist``'s saved state ``first_epoch`` and its first record):
+    every array of the state equal, each logged mean within 1e-6
+    relative."""
+    cfg = mnist_ssl_app.Config(epochs=1, epoch_scan=True, out_dir=out_dir)
+    state, got_records = mnist_ssl_app.main(cfg=cfg, device=device)
+    got = load_checkpoint(str(Path(out_dir) / "ssl_state.npz"))["state"]
+    want_leaves, got_leaves = _tree_leaves(first_epoch), _tree_leaves(got)
+    if len(got_leaves) != len(want_leaves):
+        raise AssertionError("epoch_scan_equal: the states differ in structure")
+    diff = max(float(np.abs(a - b).max()) if a.size else 0.0 for a, b in zip(got_leaves, want_leaves))
+    names = (*ssl_common.METRICS["mnist"], "test_err")
+    rel = max(abs(got_records[0][k] - records[0][k]) / max(abs(records[0][k]), 1e-30) for k in names)
+    print(f"epoch_scan_equal on {device}: MNIST, one epoch of {state.step} steps with epoch_scan against chunk 1: "
+          f"max diff {diff} over {len(want_leaves)} arrays; logged means within {rel:.3g} relative "
+          f"({json.dumps({k: got_records[0][k] for k in names})})")
+    if diff != 0 or rel > 1e-6:
+        raise AssertionError(f"epoch_scan_equal: state diff {diff}, means {rel} relative")
+    return dict(state_diff=diff, means_rel=rel, steps=state.step)
 
 
 def main() -> int:
@@ -2277,6 +2566,8 @@ def main() -> int:
     lsun128_ref = _phase("lsun128_ref", phase_lsun128_ref, device)
     lsun128_vs_cpu = {p: _phase(f"cuda_vs_cpu_lsun128_{p}", phase_cuda_vs_cpu_lsun128, device, precision=p)
                       for p in ("float32", "bfloat16")}
+    captured = run_captured_equal(device)
+    captured_memory = _phase("captured_memory", phase_captured_memory, captured)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg = app.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, INCEPTION_FREQUENCY=10,
                          inception_samples=5000, out_dir=f"{out_dir}/bf16")
@@ -2345,6 +2636,10 @@ def main() -> int:
     for name, run in ssl_runs["runs"].items():
         print(_ssl_line(name, run))
     print(f"resume_equal_ssl: max diff {ssl_runs['resume_equal']}")
+    print(f"epoch_scan_equal: {json.dumps(ssl_runs['epoch_scan_equal'])}")
+    for name, run in captured.items():
+        print(f"captured_equal_{name}: {json.dumps(run)}")
+    print(f"captured_memory: {json.dumps(captured_memory)}")
     print(f"lsun128_ref: largest gap to the JAX package's pinned outputs {lsun128_ref:.3g}")
     print(f"cuda_vs_cpu_lsun128: max param diff {json.dumps(lsun128_vs_cpu)}")
     for name, run in lsun_runs["runs"].items():

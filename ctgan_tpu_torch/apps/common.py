@@ -18,7 +18,8 @@ from ..eval import TrainedScorer
 from ..utils.images import save_images
 
 __all__ = [
-    "HostFeed", "dir_feed", "find_inception_file", "gan_step_fn", "native_feed", "parse_config", "pick_scorer",
+    "HostFeed", "dir_feed", "find_inception_file", "gan_batches", "gan_step_fn", "native_feed", "parse_config",
+    "pick_scorer",
     "require_device", "run_gan_loop", "save_sample_grid", "setup_out_dir",
 ]
 
@@ -108,17 +109,20 @@ def require_device(device) -> "torch.device":
 
 
 class HostFeed:
-    """``[K, B, C*H*W]`` float32 reals in [-1, 1] on ``device`` from a host
-    source, one stack per call: the image-directory path or the native
-    pipeline of the JAX apps (``ctgan_tpu/apps/ct_gan_64x64.py:154-180``).
-    A uint8 stack is scaled by ``2 * (x / 255 - 0.5)`` on the device, the
-    JAX apps' host math in fp32.  ``close`` releases the source."""
+    """``[K, B, C*H*W]`` host stacks from a host source, one per step: the
+    image-directory path or the native pipeline of the JAX apps
+    (``ctgan_tpu/apps/ct_gan_64x64.py:154-180``).  ``next()`` gives the
+    stack (uint8 or float32) as a step input, which reaches the step on the
+    device (a captured step's static input buffer); :meth:`to_real` makes
+    it float32 reals in [-1, 1] there.  ``close`` releases the source."""
 
-    def __init__(self, next_stack, device, close=None):
-        self._next, self.device, self._close = next_stack, device, close
+    def __init__(self, next_stack, close=None):
+        self.next, self._close = next_stack, close
 
-    def __call__(self) -> torch.Tensor:
-        x = self._next().to(self.device, non_blocking=True)
+    @staticmethod
+    def to_real(x: torch.Tensor) -> torch.Tensor:
+        """A stack as reals: uint8 scaled by ``2 * (x / 255 - 0.5)``, the
+        JAX apps' host math in fp32; float32 as it is."""
         return 2.0 * (x.float() / 255.0 - 0.5) if x.dtype == torch.uint8 else x
 
     def close(self) -> None:
@@ -126,7 +130,7 @@ class HostFeed:
             self._close()
 
 
-def dir_feed(data_dir: str, batch_size: int, critic_iters: int, size: int, seed: int, device) -> HostFeed:
+def dir_feed(data_dir: str, batch_size: int, critic_iters: int, size: int, seed: int) -> HostFeed:
     """The images of ``data_dir`` (or, when it is empty or missing, the
     synthetic set) as ``data.images_dir`` reads them, ``critic_iters``
     batches to a stack, decoded in a background thread."""
@@ -134,43 +138,55 @@ def dir_feed(data_dir: str, batch_size: int, critic_iters: int, size: int, seed:
 
     batches = images_dir.prefetch(stack_batches(
         images_dir.image_dir_generator(data_dir or None, batch_size, size, seed=seed), critic_iters))
-    return HostFeed(lambda: torch.from_numpy(next(batches)).reshape(critic_iters, batch_size, -1), device)
+    return HostFeed(lambda: torch.from_numpy(next(batches)).reshape(critic_iters, batch_size, -1))
 
 
-def native_feed(pipe, device) -> HostFeed:
+def native_feed(pipe) -> HostFeed:
     """The ``[K, B, D]`` float32 stacks of a ``data.native.NativePipeline``
     (flips and ``x * 2 / 255 - 1`` made by its worker threads)."""
-    return HostFeed(lambda: torch.from_numpy(pipe.next()[0]), device, pipe.close)
+    return HostFeed(lambda: torch.from_numpy(pipe.next()[0]), pipe.close)
+
+
+def gan_batches(app):
+    """``batch(i)`` -> the step inputs of iteration ``i`` of a GAN app:
+    ``(app.feed.next(),)``, a host stack, where the app has a feed, else
+    ``(app.sampler.host_indices(i),)``, the ``K * B`` pool indices on the
+    host."""
+    feed = getattr(app, "feed", None)
+    if feed is not None:
+        return lambda i: (feed.next(),)
+    return lambda i: (app.sampler.host_indices(i),)
 
 
 def gan_step_fn(app, chw: tuple[int, int, int]):
-    """``step_fn(state, rand)`` of the image GAN apps for the train loop:
-    the real stack (the state's step's batch of ``app.sampler``'s pool,
-    scaled and flipped, or ``app.feed``'s next), then one iteration of
-    ``app.trainer``, every draw from ``rand.for_step(state.step)``."""
+    """``step_fn(state, batch, rand)`` of the image GAN apps for the train
+    loop: the real stack (``batch`` of :func:`gan_batches`: indices into
+    ``app.sampler``'s pool, gathered, scaled and flipped on the device, or
+    ``app.feed``'s stack, scaled), then one iteration of ``app.trainer``,
+    every draw from ``rand.for_step(state.step)``."""
     from ..data import scale_and_flip
 
-    def step_fn(state, rand):
+    def step_fn(state, batch, rand):
         rand = rand.for_step(state.step)
         if app.feed is not None:
-            real = app.feed()
+            real = HostFeed.to_real(batch)
         else:
-            raw = app.sampler.sample(state.step)
+            raw = app.sampler.gather(batch)
             real = scale_and_flip(raw, rand.flip(raw.shape[0] * raw.shape[1]), chw)
         return state, app.trainer.step(state, real, rand)
 
     return step_fn
 
 
-def run_gan_loop(cfg, state, step_fn, rand, test_fn, out_dir: str, device, *, print_std: bool = False):
+def run_gan_loop(cfg, state, step_fn, batch, rand, test_fn, out_dir: str, device, *, print_std: bool = False):
     """The JAX GAN apps' ``train_loop`` call for a ``GanState``: to
     ``cfg.ITERS`` at their cadence (print every 100, test every
     ``sample_every``, save every ``save_every`` into ``<out_dir>/ckpt``),
     the iteration count as ``data_state``, checkpoints in the JAX layout,
-    resuming from ``out_dir``.  ``step_fn(state, rand)`` draws its own
-    batch.  Returns the final state and the records printed by this
-    process.  ``print_std`` prints each metric's spread beside its mean, as
-    the LSUN app's logger does."""
+    resuming from ``out_dir``.  ``step_fn(state, *batch(i), rand)`` runs
+    iteration ``i`` (``batch``: :func:`gan_batches`).  Returns the final
+    state and the records printed by this process.  ``print_std`` prints
+    each metric's spread beside its mean, as the LSUN app's logger does."""
     from ..bridge import state_from_jax, state_to_jax
     from ..train import GanState, LoopConfig, train_loop
     from ..utils.logging import MetricLogger
@@ -178,8 +194,9 @@ def run_gan_loop(cfg, state, step_fn, rand, test_fn, out_dir: str, device, *, pr
     counter = {"i": 0}
 
     def next_batch():
+        i = counter["i"]
         counter["i"] += 1
-        return ()
+        return batch(i)
 
     lcfg = LoopConfig(
         iters=cfg.ITERS, print_every=100, test_every=cfg.sample_every, save_every=cfg.save_every,

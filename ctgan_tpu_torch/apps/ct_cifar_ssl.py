@@ -20,9 +20,12 @@ Data: ``data.cifar10.load_normalized`` (batch files in ``data_dir``, else
 the synthetic set), [-0.5, 0.5] NCHW, on the device.  Each step crops and
 flips its three batches there (``data.augment.random_crop_flip``: 2 px
 reflect pad, offsets in [0, 4]); the reference did it in a host loop per
-image.  The JAX app's dispatch modes ``chunk > 1`` and ``epoch_scan`` are
-not ported and raise.  Checkpoints, logs and resume (the ensemble buffers
-too, their bias correction counting from ``ens_base``): ``apps.ssl_common``.
+image.  The JAX app's dispatch modes: ``chunk`` K logs the mean of the means
+of chunks of K batches, a ragged last chunk dropped; ``epoch_scan`` runs
+every batch and logs the mean over the steps.  On the card each step is
+one replay of a CUDA graph.  Checkpoints, logs and resume (the ensemble
+buffers too, their bias correction counting from ``ens_base``):
+``apps.ssl_common``.
 
 Entry points run on ``cuda``; ``main(..., device="cpu")`` runs on the CPU.
 """
@@ -54,8 +57,8 @@ class Config:
     LAMBDA_2: float = 1.0        # the TE variant's CT weight; the plain one uses fixed weights
     factor_M: float = 0.0
     allow_fresh_start: bool = False
-    chunk: int = 1               # a JAX dispatch mode above 1: raises
-    epoch_scan: bool = False     # a JAX dispatch mode: raises
+    chunk: int = 1               # batches per logged chunk mean; a ragged last chunk is dropped
+    epoch_scan: bool = False     # every batch as one range: the steps' mean, read once an epoch
     out_dir: str = "runs/ct_cifar_ssl"
 
 
@@ -65,7 +68,6 @@ def parse_config(argv=None) -> Config:
 
 def setup(cfg: Config, device) -> ssl_common.SslApp:
     """A fresh run of ``cfg`` on ``device``, its data on the device."""
-    ssl_common.reject_dispatch_modes(cfg)
     train = cifar10.load_normalized(cfg.data_dir or None, "train")
     test = cifar10.load_normalized(cfg.data_dir or None, "test")
     return ssl_common.build(cfg, "cifar", classifiers.cifar_ssl_classifier, classifiers.cifar_ssl_generator,

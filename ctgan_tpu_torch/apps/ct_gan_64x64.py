@@ -78,6 +78,7 @@ from . import common
 from .common import (
     HostFeed,
     dir_feed,
+    gan_batches,
     gan_step_fn,
     native_feed,
     pick_scorer,
@@ -213,10 +214,10 @@ def setup(cfg: Config, device, pool: tuple | None = None) -> App64:
     elif not cfg.DATA_DIR and cfg.input == "native" and native_available():
         pool = pool or synthetic_images(N_POOL, 3, 64, seed=cfg.seed)
         feed = native_feed(NativePipeline(pool[0], None, cfg.BATCH_SIZE, critic_iters, chw=CHW, flip=True,
-                                          seed=cfg.seed), device)
+                                          seed=cfg.seed))
     else:
         pool = None
-        feed = dir_feed(cfg.DATA_DIR, cfg.BATCH_SIZE, critic_iters, 64, cfg.seed, device)
+        feed = dir_feed(cfg.DATA_DIR, cfg.BATCH_SIZE, critic_iters, 64, cfg.seed)
     rand = Randomness(cfg.seed, device, cuda_dropout=cfg.CUDA_DROPOUT)
     return App64(trainer, trainer.init_state(gparams, dparams), sampler, rand, pool, feed)
 
@@ -273,7 +274,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
             print("IS cadence disabled: no inception file and no labeled data")
             scorer = None
     try:
-        return run_gan_loop(cfg, app.state, make_step_fn(app), app.rand,
+        return run_gan_loop(cfg, app.state, make_step_fn(app), gan_batches(app), app.rand,
                             make_test_fn(cfg, app, scorer, out_dir), out_dir, device)
     finally:
         if app.feed is not None:

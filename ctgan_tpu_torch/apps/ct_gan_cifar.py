@@ -48,7 +48,7 @@ from ..models import dcgan
 from ..train import GanState
 from ..utils import save_checkpoint
 from . import common
-from .common import pick_scorer, require_device, run_gan_loop, save_sample_grid, setup_out_dir
+from .common import gan_batches, pick_scorer, require_device, run_gan_loop, save_sample_grid, setup_out_dir
 from .ct_gan_mnist import GanApp, build, dev_cost, fixed_noise, make_step_fn
 
 __all__ = ["Config", "generate_images", "main", "make_test_fn", "parse_config", "setup", "to_real"]
@@ -148,7 +148,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
         full = load_arrays(cfg.DATA_DIR or None)
         scorer = pick_scorer(3, 32, out_dir, train_data=full["train"], device=device)
         print("scorer test acc:", scorer.sanity_check(full["test"][0][:2000], full["test"][1][:2000]))
-    return run_gan_loop(cfg, app.state, make_step_fn(app, to_real), app.rand,
+    return run_gan_loop(cfg, app.state, make_step_fn(app, to_real), gan_batches(app), app.rand,
                         make_test_fn(cfg, app, scorer, out_dir), out_dir, device)
 
 

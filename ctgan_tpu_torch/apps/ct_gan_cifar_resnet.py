@@ -35,7 +35,10 @@ every ``save_every`` iterations a checkpoint ``ckpt/ckpt_<N>.npz`` in the
 JAX package's format (the newest 5 kept) and ``params_latest.npz``.  Run it
 again with the same ``out_dir`` and it resumes, also from a checkpoint the
 JAX app wrote.  Every iteration's draws are a function of ``(seed, step)``,
-so a resumed run trains as an uninterrupted one would.
+so a resumed run trains as an uninterrupted one would.  On the card each
+iteration is one replay of a CUDA graph (``LoopConfig.jit_step``, the
+default): the batch's indices go to the device in the step's input buffer
+and the pool is gathered inside the graph.
 
 Entry points run on ``cuda``; ``main(..., device="cpu")`` runs on the CPU
 with the dropout kernel's plain version.
@@ -58,7 +61,7 @@ from ..utils.logging import MetricLogger
 from . import common
 from .common import pick_scorer, require_device, save_sample_grid, setup_out_dir
 
-__all__ = ["Config", "Flagship", "main", "make_test_fn", "parse_config", "setup"]
+__all__ = ["Config", "Flagship", "main", "make_step_fn", "make_test_fn", "parse_config", "setup"]
 
 GEN_CHUNK = 5000  # images per generator call in the IS/FID eval (batch statistics!)
 N_GRID = 100
@@ -152,6 +155,19 @@ def setup(cfg: Config, device) -> Flagship:
     return Flagship(trainer, state, sampler, rand, data)
 
 
+def make_step_fn(flagship: Flagship):
+    """``step_fn(state, idx, rand)`` for the train loop: the pool's images
+    and labels at the iteration's ``K * B`` indices ``idx``
+    (``sampler.host_indices``), gathered on the device, then one iteration,
+    every draw from ``rand.for_step(state.step)``."""
+
+    def step_fn(state: AcganState, idx: torch.Tensor, rand: Randomness):
+        real_stack, label_stack = flagship.sampler.gather(idx)
+        return state, flagship.trainer.step(state, real_stack, label_stack, rand.for_step(state.step))
+
+    return step_fn
+
+
 def make_test_fn(cfg: Config, flagship: Flagship, scorer, out_dir: str):
     """The JAX app's ``test_fn(state, iteration) -> metrics``: dev cost on
     the first ``BATCH_SIZE * 10`` test images in one call, the fixed
@@ -210,10 +226,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     def next_batch():
         i = counter["i"]
         counter["i"] += 1
-        return flagship.sampler.sample(i)
-
-    def step_fn(state, real_stack, label_stack, rand):
-        return state, flagship.trainer.step(state, real_stack, label_stack, rand.for_step(state.step))
+        return (flagship.sampler.host_indices(i),)
 
     lcfg = LoopConfig(
         iters=cfg.ITERS, print_every=100, test_every=cfg.sample_every, save_every=cfg.save_every,
@@ -221,7 +234,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     )
     logger = MetricLogger(out_dir)
     state = train_loop(
-        flagship.state, step_fn, next_batch, flagship.rand, lcfg, logger=logger, test_fn=test_fn,
+        flagship.state, make_step_fn(flagship), next_batch, flagship.rand, lcfg, logger=logger, test_fn=test_fn,
         data_state=lambda: {"i": counter["i"]},
         set_data_state=lambda s: counter.update(i=int(s["i"])),
         to_blob=state_to_jax, from_blob=lambda blob: state_from_jax(blob, device),

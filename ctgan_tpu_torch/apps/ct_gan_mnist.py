@@ -49,7 +49,7 @@ from ..data import DeviceSampler, mnist
 from ..models import dcgan
 from ..train import GanConfig, GanState, GanTrainer
 from . import common
-from .common import require_device, run_gan_loop, save_sample_grid, setup_out_dir
+from .common import gan_batches, require_device, run_gan_loop, save_sample_grid, setup_out_dir
 
 __all__ = ["Config", "GanApp", "main", "make_step_fn", "make_test_fn", "parse_config", "setup"]
 
@@ -129,12 +129,13 @@ def setup(cfg: Config, device) -> GanApp:
 
 
 def make_step_fn(app: GanApp, to_real=None):
-    """``step_fn(state, rand)`` for the train loop: the batch of the
-    state's step (through ``to_real``, if given), then one iteration, every
-    draw from ``rand.for_step(state.step)``."""
+    """``step_fn(state, idx, rand)`` for the train loop: the batch at the
+    iteration's ``K * B`` pool indices ``idx`` (``common.gan_batches``),
+    gathered on the device (through ``to_real``, if given), then one
+    iteration, every draw from ``rand.for_step(state.step)``."""
 
-    def step_fn(state: GanState, rand: Randomness):
-        real = app.sampler.sample(state.step)
+    def step_fn(state: GanState, idx: torch.Tensor, rand: Randomness):
+        real = app.sampler.gather(idx)
         return state, app.trainer.step(state, real if to_real is None else to_real(real),
                                        rand.for_step(state.step))
 
@@ -183,8 +184,8 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     out_dir = setup_out_dir(cfg)
     app = setup(cfg, device)
     print(f"device {device}, out_dir {out_dir}")
-    return run_gan_loop(cfg, app.state, make_step_fn(app), app.rand, make_test_fn(cfg, app, out_dir),
-                        out_dir, device)
+    return run_gan_loop(cfg, app.state, make_step_fn(app), gan_batches(app), app.rand,
+                        make_test_fn(cfg, app, out_dir), out_dir, device)
 
 
 if __name__ == "__main__":

@@ -14,9 +14,11 @@ never sets bf16); no dropout, so no kernel on this path.
 
 Data: ``data.mnist`` train and dev, 60,000 images, as the unlabelled set and
 the pool the labels are chosen from (``select_labeled``); test, 10,000.
-The JAX app steps in chunks of 50 batches; with 600 batches an epoch's means
-are the same, and the port steps once per batch.  ``epoch_scan`` (the JAX
-app's one-program epoch) is not ported and raises.  Checkpoints, logs and
+The JAX app logs the means of chunks of 50 batches; 50 divides the 600
+batches of an epoch, so the mean over the steps that the port logs is the
+same.  ``epoch_scan`` runs the JAX app's one-program epoch: every batch, the
+mean over the steps read once (``apps.ssl_common``).  On the
+card each step is one replay of a CUDA graph.  Checkpoints, logs and
 resume: ``apps.ssl_common``.
 
 Entry points run on ``cuda``; ``main(..., device="cpu")`` runs on the CPU.
@@ -48,7 +50,7 @@ class Config:
     LAMBDA_2: float = 0.1
     factor_M: float = 0.0
     allow_fresh_start: bool = False
-    epoch_scan: bool = False     # a JAX dispatch mode: raises
+    epoch_scan: bool = False     # the JAX dispatch mode: every batch, the steps' mean read once an epoch
     out_dir: str = "runs/ct_mnist_ssl"
 
 
@@ -58,7 +60,6 @@ def parse_config(argv=None) -> Config:
 
 def setup(cfg: Config, device) -> ssl_common.SslApp:
     """A fresh run of ``cfg`` on ``device``, its data on the device."""
-    ssl_common.reject_dispatch_modes(cfg)
     d = mnist.load_arrays()
     train = (np.concatenate([d["train"][0], d["dev"][0]]), np.concatenate([d["train"][1], d["dev"][1]]))
     return ssl_common.build(cfg, "mnist", classifiers.mnist_ssl_classifier, classifiers.mnist_ssl_generator,

@@ -9,22 +9,25 @@ critic iterations, wgan-ct, bf16); with it, the LSUN app
 5 critic iterations, wgan-CT, bf16); fp32 with ``--fp32``.  The app's own
 step (the pool batch, scaling and flips, one iteration) runs for
 ``WARMUP`` iterations, then ``ITERS`` iterations are traced with
-``torch.profiler``, and it prints what ``profile_flagship.measure``
-measures: per iteration the wall time, the device busy time and idle
-share, the device operations and the busy time by kernel family, with the
-peak device memory of the traced iterations; then the largest kernels.
-With a path it also writes the Chrome trace there.  Needs a CUDA device.
+``torch.profiler``, in two arms (eager, then captured in a CUDA graph as
+the app runs it: ``profile_flagship.measure_arms``), and it prints for each
+what ``profile_flagship.measure`` measures: s/iter unprofiled, per traced
+iteration the wall time, the device busy time and idle share, the device
+operations and the busy time by kernel family, with the peak device memory;
+then the largest kernels.  The bf16 128 px step's cuDNN kernels overlap, so
+its idle share is undefined: read its s/iter.  With a path it also writes
+each arm's Chrome trace there.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import json
 import sys
 
 import torch
 
 from . import ct_gan_64x64, wgan_lsun128
-from .profile_flagship import ITERS, WARMUP, measure, print_top
+from .common import gan_batches
+from .profile_flagship import measure_arms
 
 APPS = {"64x64": ct_gan_64x64, "lsun128": wgan_lsun128}
 
@@ -38,14 +41,9 @@ def main(argv=None) -> int:
         print("profile_64x64: no CUDA device", file=sys.stderr)
         return 1
     app, device = APPS[model], torch.device("cuda")
-    run = app.setup(app.Config(ITERS=WARMUP + ITERS, BF16=bf16), device)
-    step_fn = app.make_step_fn(run)
-    torch.cuda.reset_peak_memory_stats(device)
-    summary, by_name = measure(lambda it: step_fn(run.state, run.rand), WARMUP, ITERS,
-                               argv[0] if argv else None)
-    peak = torch.cuda.max_memory_allocated(device) / 2**30
-    print(json.dumps({**summary, "model": model, "bf16": bf16, "peak_gib": round(peak, 3)}))
-    print_top(by_name)
+    run = app.setup(app.Config(BF16=bf16), device)
+    measure_arms(app.make_step_fn(run), run.rand, run.state, gan_batches(run), model, argv[0] if argv else None,
+                 model=model, bf16=bf16)
     return 0
 
 

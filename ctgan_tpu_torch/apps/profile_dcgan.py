@@ -7,22 +7,24 @@ Runs the app's configuration (``ct_gan_mnist.Config`` or
 dim 64 and batch 50, CIFAR-10 dim 128 and batch 64; fp32 with ``--fp32``)
 through the app's own step (the sampler's batch, one iteration) for
 ``WARMUP`` iterations, then traces ``ITERS`` iterations with
-``torch.profiler`` and prints what ``profile_flagship.measure`` measures:
-per iteration the wall time, the device busy time and idle share, the
-device operations and the busy time by kernel family, then the largest
-kernels.  With a path it also writes the Chrome trace there.  Needs a CUDA
-device.
+``torch.profiler``, in two arms (eager, then captured in a CUDA graph as
+the app runs it: ``profile_flagship.measure_arms``), and prints for each
+what ``profile_flagship.measure`` measures: s/iter unprofiled, per traced
+iteration the wall time, the device busy time and idle share, the device
+operations and the busy time by kernel family, the peak device memory,
+then the largest kernels.  With a path it also writes each arm's Chrome
+trace there.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import json
 import sys
 
 import torch
 
 from . import ct_gan_cifar, ct_gan_mnist
-from .profile_flagship import ITERS, WARMUP, measure, print_top
+from .common import gan_batches
+from .profile_flagship import measure_arms
 
 
 def main(argv=None) -> int:
@@ -37,12 +39,10 @@ def main(argv=None) -> int:
         return 1
     model, argv = argv[0], argv[1:]
     app = ct_gan_mnist if model == "mnist" else ct_gan_cifar
-    run = app.setup(app.Config(ITERS=WARMUP + ITERS, BF16=bf16), torch.device("cuda"))
+    run = app.setup(app.Config(BF16=bf16), torch.device("cuda"))
     step_fn = ct_gan_mnist.make_step_fn(run, None if model == "mnist" else ct_gan_cifar.to_real)
-    summary, by_name = measure(lambda it: step_fn(run.state, run.rand), WARMUP, ITERS,
-                               argv[0] if argv else None)
-    print(json.dumps({**summary, "model": model, "bf16": bf16}))
-    print_top(by_name)
+    measure_arms(step_fn, run.rand, run.state, gan_batches(run), model, argv[0] if argv else None, model=model,
+                 bf16=bf16)
     return 0
 
 

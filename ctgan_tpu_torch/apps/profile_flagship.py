@@ -2,18 +2,22 @@
 
     python -m ctgan_tpu_torch.apps.profile_flagship [--fp32] [trace.json]
 
-Runs the flagship app's configuration (``ct_gan_cifar_resnet.Config``
-defaults: dim 128, batch 64, 5 critic iterations, bf16; fp32 with
-``--fp32``) for ``WARMUP``
-iterations, then traces ``ITERS`` iterations with ``torch.profiler``.  It
-prints, per iteration: the wall time (host clock, synchronised), the device
-busy time (the sum of kernel and copy durations on the one stream) and the
-idle share, the number of device operations, and the busy time by kernel
-family and by kernel, largest first; then, unprofiled, the host's
-milliseconds per iteration of drawing the dequantisation noise on the CPU
-and copying it from pinned memory, the route the port does not take
-(``philox_uniform`` draws it on the card).  With a path it also writes the
-Chrome trace there.  Needs a CUDA device.
+Runs the flagship app's step (``ct_gan_cifar_resnet.Config`` defaults:
+dim 128, batch 64, 5 critic iterations, bf16; fp32 with ``--fp32``) in two
+arms on one state, eager (``jit_step=False``) and then captured in a CUDA
+graph as the app runs it (``train.capture.step_runner``).  Each arm runs
+``WARMUP`` iterations (the captured arm's warm-up and capture among them),
+times ``TIMED`` unprofiled (``s_per_iter``, synchronised at both ends), then
+traces ``ITERS`` with ``torch.profiler``.  It prints for each arm, per
+iteration: the wall time of the traced iterations (host clock,
+synchronised), the device busy time (the sum of kernel and copy durations)
+and the idle share, the number of device operations, the busy time by
+kernel family and by kernel, largest first, and the peak device memory;
+then, unprofiled, the host's milliseconds per iteration of drawing the
+dequantisation noise on the CPU and copying it from pinned memory, the
+route the port does not take (``philox_uniform`` draws it on the card).
+With a path it also writes each arm's Chrome trace there
+(``<path>.<arm>.json``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,11 +32,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .ct_gan_cifar_resnet import Config, setup
+from ..train.capture import step_runner
+from .ct_gan_cifar_resnet import Config, make_step_fn, setup
 
 WARMUP = 5
+TIMED = 5
 ITERS = 3
 TOP = 15
+ARMS = (("eager", False), ("captured", True))
 
 # kernel-name substrings, checked in order; the first match names the family
 FAMILIES = [
@@ -75,19 +82,26 @@ def host_dequant_ms(cfg: Config, device, reps: int = 20) -> float:
 
 def measure(step: Callable[[int], object], warmup: int, iters: int,
             trace_path: str | None = None) -> tuple[dict, dict]:
-    """``step(it)`` for ``warmup`` iterations, then ``iters`` more traced:
-    per iteration the wall time (synchronised), the device busy time (the
-    sum of kernel and copy durations on the one stream) and the idle share,
-    the number of device operations and the busy time by kernel family.
-    Returns that summary (ms per iteration) and the busy microseconds per
-    iteration by kernel name.  With ``trace_path`` it also writes the Chrome
-    trace there."""
+    """``step(it)`` for ``warmup`` iterations, ``TIMED`` more unprofiled
+    (``s_per_iter``: synchronised at both ends, so the host runs ahead as in
+    training), then ``iters`` more traced: per iteration the wall time
+    (synchronised), the device busy time (the sum of kernel and copy
+    durations) and the idle share, the number of device operations and the
+    busy time by kernel family.  Returns that summary (ms per iteration) and
+    the busy microseconds per iteration by kernel name.  With ``trace_path``
+    it also writes the Chrome trace there."""
     for it in range(warmup):
         step(it)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(warmup, warmup + TIMED):
+        step(it)
+    torch.cuda.synchronize()
+    s_per_iter = (time.perf_counter() - t0) / TIMED
+    start = warmup + TIMED
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for it in range(warmup, warmup + iters):
+        for it in range(start, start + iters):
             step(it)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -107,6 +121,7 @@ def measure(step: Callable[[int], object], warmup: int, iters: int,
     summary = {
         "device": torch.cuda.get_device_name(0),
         "iters": iters,
+        "s_per_iter": round(s_per_iter, 6),
         "wall_ms_per_iter": per_it(wall_us),
         "device_busy_ms_per_iter": per_it(busy_us),
         "device_idle_share": round(1 - busy_us / wall_us, 5) if busy_us else None,
@@ -122,6 +137,25 @@ def print_top(by_name: dict) -> None:
         print(f"{us / 1e3:10.5f} ms/iter  {name[:140]}")
 
 
+def measure_arms(step_fn: Callable, rand, state, inputs: Callable[[int], tuple], name: str,
+                 trace_path: str | None = None, **extra) -> None:
+    """``measure`` of ``step_fn(state, *inputs(it), rand)`` in both arms
+    (``ARMS``), one after the other on ``state``; prints each arm's summary
+    (one JSON line, ``extra`` and the peak device memory added) and its
+    largest kernels."""
+    it = 0
+    for arm, jit_step in ARMS:
+        run = step_runner(step_fn, rand, name=name, jit_step=jit_step)
+        first = it
+        torch.cuda.reset_peak_memory_stats()
+        summary, by_name = measure(lambda i: run(state, *inputs(first + i)), WARMUP, ITERS,
+                                   f"{trace_path}.{arm}.json" if trace_path else None)
+        it += WARMUP + TIMED + ITERS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(json.dumps({"arm": arm, **summary, **extra, "peak_gib": round(peak, 3)}))
+        print_top(by_name)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     bf16 = "--fp32" not in argv
@@ -130,16 +164,11 @@ def main(argv=None) -> int:
         print("profile_flagship: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    cfg = Config(ITERS=WARMUP + ITERS, BF16=bf16)
-    trainer, state, sampler, rand, _ = setup(cfg, device)
-
-    def step(it):
-        trainer.step(state, *sampler.sample(it), rand.for_step(it))
-
-    summary, by_name = measure(step, WARMUP, ITERS, argv[0] if argv else None)
-    print(json.dumps({**summary, "bf16": bf16,
-                      "host_dequant_ms_per_iter": round(host_dequant_ms(cfg, device), 5)}))
-    print_top(by_name)
+    cfg = Config(BF16=bf16)
+    flagship = setup(cfg, device)
+    measure_arms(make_step_fn(flagship), flagship.rand, flagship.state,
+                 lambda it: (flagship.sampler.host_indices(it),), "flagship", argv[0] if argv else None, bf16=bf16)
+    print(json.dumps({"host_dequant_ms_per_iter": round(host_dequant_ms(cfg, device), 5)}))
     return 0
 
 

@@ -5,14 +5,16 @@
 Builds the app's run at its ``Config`` defaults (``ct_mnist_ssl``, or
 ``ct_cifar_ssl`` without and with ``temporal_ensembling``; fp32, batch 100,
 the data-dependent init included) and runs the app's own step on the
-batches of epoch 0's order for ``WARMUP`` steps, then traces ``ITERS``
-steps with ``torch.profiler`` and prints what ``profile_flagship.measure``
-measures: per step the wall time (synchronised), the device busy time and
-idle share, the device operations, the busy time by kernel family (the mask
-kernel's share of the busy time beside it), then the largest kernels.
-For MNIST it also times, unprofiled, the host's draw of one step's Gaussian
-noise (36 draws, 1.82 M normals) and its pinned copies.  With a path it
-writes the Chrome trace there.  Needs a CUDA device.
+batches of epoch 0's order in two arms (eager, then captured in a CUDA
+graph as the app runs it: ``profile_flagship.measure_arms``): ``WARMUP``
+steps, ``TIMED`` unprofiled, then ``ITERS`` traced with
+``torch.profiler``, and prints for each what ``profile_flagship.measure``
+measures: s/step unprofiled, per traced step the wall time
+(synchronised), the device busy time and idle share, the device operations,
+the busy time by kernel family, the peak device memory, then the largest
+kernels.  For MNIST it also times, unprofiled, the host's draw of one
+step's Gaussian noise (36 draws, 1.82 M normals) and its pinned copies.
+With a path it writes each arm's Chrome trace there.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from ..core import Randomness
 from . import ct_cifar_ssl, ct_mnist_ssl, ssl_common
-from .profile_flagship import ITERS, WARMUP, measure, print_top
+from .profile_flagship import measure_arms
 
 MODELS = ("mnist", "cifar", "te")
 
@@ -66,26 +68,17 @@ def main(argv=None) -> int:
     bs = cfg.batch_size
     orders = [torch.from_numpy(o).to(device)
               for o in ssl_common.epoch_orders(cfg.seed, 0, len(app.train), len(app.labeled[0]))]
-    step_fn = ssl_common.make_step_fn(app)
     n_classes = 10
     targets = None
     if model == "te":
         targets = (torch.full((bs, n_classes), 1 / n_classes, device=device),
                    torch.zeros(bs, ssl_common.TE_FEATURES, device=device))
-
-    def step(it):
-        lab, unl, unl2 = (o[it * bs:(it + 1) * bs] for o in orders)
-        step_fn(app.state, lab, unl, unl2, targets)
-
-    summary, by_name = measure(step, WARMUP, ITERS, argv[0] if argv else None)
-    busy = summary["device_busy_ms_per_iter"]
-    mask = summary["families_ms_per_iter"].get("dropout_mask", 0.0)
-    summary.update(model=model, mask_ms_per_step=mask, mask_share_of_busy=round(mask / busy, 6) if busy else None)
+    inputs = lambda it: (*(o[it * bs:(it + 1) * bs] for o in orders), targets)
+    measure_arms(ssl_common.make_step_fn(app), app.rand, app.state, inputs, model, argv[0] if argv else None,
+                 model=model)
     if model == "mnist":
         ms, normals = host_noise_ms(app, bs)
-        summary.update(host_noise_ms_per_step=round(ms, 5), normals_per_step=normals)
-    print(json.dumps(summary))
-    print_top(by_name)
+        print(json.dumps({"host_noise_ms_per_step": round(ms, 5), "normals_per_step": normals}))
     return 0
 
 

@@ -10,19 +10,32 @@ set tiled in fresh permutations to the unlabelled size, then two
 permutations of the unlabelled set), go to the device once, and each of the
 ``n // batch_size`` steps gathers its batches there.  Step ``s`` draws from
 ``Randomness(seed).for_step(s)``, so a resumed run draws what an
-uninterrupted one does.  Metrics stay on the device until the epoch ends:
-the step does not synchronise.
+uninterrupted one does.  On the card each step is one replay of a CUDA graph
+(``train.capture.step_runner``).  Metrics stay on the device until the epoch
+ends: the step does not synchronise.
 
-Every epoch: the means of the step metrics and ``test_err`` (the averaged
-parameters' error over the test set's ``len // batch_size`` batches) are
-logged (``log.pkl``, ``log.ndjson``), then ``disc_params.npz``,
-``gen_params.npz``, ``avg_params.npz`` and ``ssl_state.npz`` are written in
-the JAX package's format.  A run in an ``out_dir`` that holds them resumes
-from ``ssl_state.npz`` (exactly, TE buffers included), or, with the state
-gone, approximately from the three parameter files and ``log.pkl``
+The JAX apps' dispatch modes (``ctgan_tpu/apps/ct_cifar_ssl.py:282-330``),
+the same steps with the same draws, so the state after an epoch does not
+depend on the mode where the same steps ran:
+
+* ``chunk=K`` (default 1): the epoch runs in chunks ``range(0, n_batches,
+  K)``; a ragged last chunk is dropped unless it is the first; each logged
+  mean is the mean of the chunks' means over the chunks that ran;
+* ``epoch_scan``: every batch of the epoch as one range; each logged mean
+  is the mean over the steps.
+
+In every mode the step metrics stay on the device and are read once, at
+the end of the epoch.
+
+Every epoch: those means and ``test_err`` (the averaged parameters' error
+over the test set's ``len // batch_size`` batches) are logged (``log.pkl``,
+``log.ndjson``), then ``disc_params.npz``, ``gen_params.npz``,
+``avg_params.npz`` and ``ssl_state.npz`` are written in the JAX package's
+format.  A run in an ``out_dir`` that holds them resumes from
+``ssl_state.npz`` (exactly, TE buffers included), or, with the state gone,
+approximately from the three parameter files and ``log.pkl``
 (``utils.resume.resolve_ssl_resume``); either package reads what the other
-wrote.  The JAX apps' dispatch modes (``epoch_scan``, ``chunk > 1``) are not
-ported.
+wrote.
 """
 
 from __future__ import annotations
@@ -39,11 +52,12 @@ from ..data.augment import random_crop_flip
 from ..losses.semisup import ema_targets_update
 from ..models.classifiers import with_applied_weights
 from ..train import SslConfig, SslState, SslTrainer, data_dependent_init, make_ssl_trainer
+from ..train import capture
 from ..utils import MetricLogger, StepWatchdog, load_checkpoint, save_checkpoint
 from ..utils.resume import reap_stale_tmps, resolve_ssl_resume
 
 __all__ = [
-    "SslApp", "TE_FEATURES", "build", "epoch_orders", "make_step_fn", "reject_dispatch_modes", "run",
+    "SslApp", "TE_FEATURES", "build", "chunks", "epoch_means", "epoch_orders", "make_step_fn", "run",
     "select_labeled", "test_error",
 ]
 
@@ -76,17 +90,6 @@ def select_labeled(trainx: np.ndarray, trainy: np.ndarray, count: int, rng: np.r
     return np.concatenate(txs), np.concatenate(tys)
 
 
-def reject_dispatch_modes(cfg) -> None:
-    """The JAX apps' dispatch modes run a chunk or an epoch of steps as one
-    device program; the port's counterpart is a captured step."""
-    if getattr(cfg, "epoch_scan", False):
-        raise NotImplementedError("epoch_scan (one device program per epoch) is not ported: "
-                                  "ROADMAP Queue 1 item 18 (capture the training iteration)")
-    if getattr(cfg, "chunk", 1) != 1:
-        raise NotImplementedError(f"chunk {cfg.chunk} (a scan over steps) is not ported: "
-                                  "ROADMAP Queue 1 item 18 (capture the training iteration)")
-
-
 def build(cfg, arch: str, classifier_fn: Callable, generator_fn: Callable, init_params: Callable,
           train: tuple, test: tuple, device, *, variant: str, lambda_2: float, augment: bool) -> SslApp:
     """A fresh run of ``cfg`` on ``device``: ``init_params(arch, cfg.seed)``
@@ -117,14 +120,15 @@ def build(cfg, arch: str, classifier_fn: Callable, generator_fn: Callable, init_
 
 
 def make_step_fn(app: SslApp):
-    """``step_fn(state, lab_idx, unl_idx, unl2_idx, targets)``: the step's
-    batches gathered on the device (cropped and flipped first where
+    """``step_fn(state, lab_idx, unl_idx, unl2_idx, targets, rand)``: the
+    step's batches gathered on the device (cropped and flipped first where
     ``app.augment``, the labelled batch, then each unlabelled one), then
-    ``trainer.step``, every draw from ``app.rand.for_step(state.step)``.
-    Returns ``trainer.step``'s ``(metrics, probs, features)``."""
+    ``trainer.step``, every draw from ``rand.for_step(state.step)`` (``rand``
+    is ``app.rand``, or a captured step's provider).  Returns
+    ``trainer.step``'s ``(metrics, probs, features)``."""
 
-    def step_fn(state: SslState, lab_idx, unl_idx, unl2_idx, targets):
-        rand = app.rand.for_step(state.step)
+    def step_fn(state: SslState, lab_idx, unl_idx, unl2_idx, targets, rand):
+        rand = rand.for_step(state.step)
         x_lab, x_unl, x_unl2 = app.labeled[0][lab_idx], app.train[unl_idx], app.train[unl2_idx]
         if app.augment:
             x_lab, x_unl, x_unl2 = (random_crop_flip(x, rand.crop_offsets(len(x), CROP_PAD), rand.flip(len(x)),
@@ -142,6 +146,34 @@ def test_error(app: SslApp, state: SslState, batch_size: int) -> float:
     total = sum(app.trainer.test_error(state, x[i * batch_size:(i + 1) * batch_size],
                                        y[i * batch_size:(i + 1) * batch_size]) for i in range(n_batches))
     return float(total / n_batches)
+
+
+def chunks(n_batches: int, chunk: int, epoch_scan: bool = False) -> list[tuple[int, int]]:
+    """The ``(t0, t1)`` batch ranges an epoch runs: ``range(0, n_batches,
+    chunk)``, a ragged last chunk dropped unless it is the first
+    (``ctgan_tpu/apps/ct_cifar_ssl.py:301-304``); ``epoch_scan`` runs every
+    batch as one range."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, not {chunk}")
+    if epoch_scan:
+        return [(0, n_batches)] if n_batches else []
+    out = []
+    for t0 in range(0, n_batches, chunk):
+        t1 = min(t0 + chunk, n_batches)
+        if t1 - t0 != chunk and t0 > 0:
+            break
+        out.append((t0, t1))
+    return out
+
+
+def epoch_means(rows: torch.Tensor, ranges: list[tuple[int, int]]) -> list[float]:
+    """The logged epoch means of the ``[steps, metrics]`` step metrics
+    ``rows``: each range's fp32 mean, then the mean of those in fp64 (with
+    ``chunk=1`` the steps' mean)."""
+    if not ranges:
+        return [0.0] * rows.shape[1]
+    per_chunk = torch.stack([rows[t0:t1].mean(0) for t0, t1 in ranges])
+    return (per_chunk.double().sum(0) / len(ranges)).tolist()
 
 
 def epoch_orders(seed: int, epoch: int, n: int, n_labeled: int):
@@ -177,8 +209,11 @@ def run(cfg, app: SslApp, out_dir: str, device, *, name: str, ensemble: bool = F
     what ``out_dir`` holds; returns the final state and the records this
     process logged.  With ``ensemble`` (the CIFAR-10 app, as the JAX app
     does) the temporal-ensembling buffers are kept, saved and resumed; they
-    are updated only with ``temporal_ensembling``."""
+    are updated only with ``temporal_ensembling``.  ``cfg.chunk`` and
+    ``cfg.epoch_scan`` (where the config has them) choose the dispatch
+    mode."""
     device = torch.device(device)
+    chunk, epoch_scan = getattr(cfg, "chunk", 1), getattr(cfg, "epoch_scan", False)
     state, trainer, bs = app.state, app.trainer, cfg.batch_size
     n, n_labeled = len(app.train), len(app.labeled[0])
     metric_names = METRICS["mnist" if trainer.cfg.variant == "mnist" else "cifar"]
@@ -208,7 +243,8 @@ def run(cfg, app: SslApp, out_dir: str, device, *, name: str, ensemble: bool = F
     logger.set_iteration(start_epoch)
 
     step_fn = make_step_fn(app)
-    n_batches = n // bs
+    step = capture.step_runner(step_fn, app.rand, name=name)
+    ranges = chunks(n // bs, chunk, epoch_scan)
     watchdog = StepWatchdog.start_from_env(name=name)
     try:
         for epoch in range(start_epoch, cfg.epochs):
@@ -216,10 +252,10 @@ def run(cfg, app: SslApp, out_dir: str, device, *, name: str, ensemble: bool = F
             rows = []
             if temporal_ensembling:
                 preds, preds2 = torch.zeros_like(ens.ensemble), torch.zeros_like(ens.ensemble2)
-            for b in range(n_batches):
+            for b in range(ranges[-1][1] if ranges else 0):
                 lab_idx, unl_idx, unl2_idx = (o[b * bs:(b + 1) * bs] for o in orders)
                 targets = (ens.targets[unl_idx], ens.targets2[unl_idx]) if temporal_ensembling else None
-                metrics, probs, feats = step_fn(state, lab_idx, unl_idx, unl2_idx, targets)
+                metrics, probs, feats = step(state, lab_idx, unl_idx, unl2_idx, targets)
                 rows.append(torch.stack([metrics[k] for k in metric_names]))
                 if temporal_ensembling:
                     preds[unl_idx], preds2[unl_idx] = probs, feats
@@ -227,7 +263,7 @@ def run(cfg, app: SslApp, out_dir: str, device, *, name: str, ensemble: bool = F
                 (e1, t1), (e2, t2) = (ema_targets_update(e, p, epoch - ens_base, decay=prediction_decay)
                                       for e, p in ((ens.ensemble, preds), (ens.ensemble2, preds2)))
                 ens = _Ensemble(e1, e2, t1, t2)
-            means = (torch.stack(rows).double().sum(0) / max(n_batches, 1)).tolist()
+            means = epoch_means(torch.stack(rows) if rows else torch.zeros(0, len(metric_names)), ranges)
             test_err = test_error(app, state, bs)
             for k, v in zip(metric_names, means):
                 logger.plot(k, v)

@@ -52,7 +52,8 @@ from ..data import DeviceSampler, synthetic_images
 from ..models import lsun128
 from ..train import GanConfig, GanState, GanTrainer
 from . import common
-from .common import HostFeed, dir_feed, gan_step_fn, require_device, run_gan_loop, save_sample_grid, setup_out_dir
+from .common import (HostFeed, dir_feed, gan_batches, gan_step_fn, require_device, run_gan_loop, save_sample_grid,
+                     setup_out_dir)
 
 __all__ = ["AppLsun", "Config", "check_supported", "main", "make_step_fn", "make_test_fn", "model_config",
            "parse_config", "setup"]
@@ -139,7 +140,7 @@ def setup(cfg: Config, device, pool: np.ndarray | None = None) -> AppLsun:
         flat = pool if pool is not None else synthetic_images(N_POOL, 3, SIZE, seed=cfg.seed)[0]
         sampler = DeviceSampler([flat], cfg.BATCH_SIZE, cfg.CRITIC_ITERS, seed=cfg.seed, device=device)
     else:
-        feed = dir_feed(cfg.DATA_DIR, cfg.BATCH_SIZE, cfg.CRITIC_ITERS, SIZE, cfg.seed, device)
+        feed = dir_feed(cfg.DATA_DIR, cfg.BATCH_SIZE, cfg.CRITIC_ITERS, SIZE, cfg.seed)
     rand = Randomness(cfg.seed, device, cuda_dropout=cfg.CUDA_DROPOUT)
     return AppLsun(trainer, trainer.init_state(gparams, dparams), sampler, rand, feed)
 
@@ -173,8 +174,8 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     app = setup(cfg, device)
     print(f"device {device}, out_dir {out_dir}")
     try:
-        return run_gan_loop(cfg, app.state, make_step_fn(app), app.rand, make_test_fn(cfg, app, out_dir),
-                            out_dir, device, print_std=True)
+        return run_gan_loop(cfg, app.state, make_step_fn(app), gan_batches(app), app.rand,
+                            make_test_fn(cfg, app, out_dir), out_dir, device, print_std=True)
     finally:
         if app.feed is not None:
             app.feed.close()

@@ -8,7 +8,9 @@
 * :class:`DeviceSampler`: the set lives on the device.  Each iteration
   takes the next ``critic_iters * batch_size`` slots of a per-epoch
   permutation, as ``[K, B, ...]`` stacks, so no data crosses from the host
-  while training.
+  while training: only the iteration's indices (:meth:`~DeviceSampler.host_indices`,
+  which a captured step copies into its static input buffer), gathered on
+  the device (:meth:`~DeviceSampler.gather`).
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ class DeviceSampler:
         self.per_iter = batch_size * critic_iters
         self.iters_per_epoch = max(1, self.n // self.per_iter)
         self._perm_cache: tuple[int, torch.Tensor] | None = None
+        self._host_perm_cache: tuple[int, torch.Tensor] | None = None
 
     def host_perm(self, epoch: int) -> torch.Tensor:
         """The port's own (seed, epoch)-deterministic shuffle, drawn on the
@@ -104,11 +107,27 @@ class DeviceSampler:
             self._perm_cache = (epoch, self.host_perm(epoch).to(self.device))
         return self._perm_cache[1]
 
+    def _slots(self, step: int, perm: torch.Tensor) -> torch.Tensor:
+        start = (step % self.iters_per_epoch) * self.per_iter
+        return perm[start:start + self.per_iter]
+
     def sample(self, step: int, perm: torch.Tensor | None = None):
         """``[K, B, ...]`` batches of every array for iteration ``step``."""
         if perm is None:
             perm = self.epoch_perm(step // self.iters_per_epoch)
-        start = (step % self.iters_per_epoch) * self.per_iter
-        idx = perm[start:start + self.per_iter].to(self.device)
+        return self.gather(self._slots(step, perm))
+
+    def host_indices(self, step: int) -> torch.Tensor:
+        """The ``K * B`` indices :meth:`sample` gathers for iteration
+        ``step``, on the host (int64)."""
+        epoch = step // self.iters_per_epoch
+        if self._host_perm_cache is None or self._host_perm_cache[0] != epoch:
+            self._host_perm_cache = (epoch, self.host_perm(epoch))
+        return self._slots(step, self._host_perm_cache[1])
+
+    def gather(self, idx: torch.Tensor):
+        """``[K, B, ...]`` batches of every array at the ``K * B`` indices
+        ``idx``."""
+        idx = idx.to(self.device)
         outs = [a[idx].reshape((self.k, self.batch_size) + tuple(a.shape[1:])) for a in self.arrays]
         return outs[0] if len(outs) == 1 else tuple(outs)

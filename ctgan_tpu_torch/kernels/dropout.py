@@ -14,8 +14,9 @@ The seed is an int, or a *seed table*: a 1-D ``torch.int32`` tensor on the
 output's device holding uint32 bit patterns (:func:`seed_table`), read at
 ``slot``.  The kernels read ``seeds[slot]`` from device memory, so a CUDA
 graph that captured a launch draws anew when the table is overwritten; an
-int seed is a one-element table.  The plain versions read ``seeds[slot]``
-on the host.
+int seed is a one-element table.  The plain versions take ``seeds[slot]``
+as a 0-d tensor on the table's device, never reading it on the host, so a
+graph that captured them draws anew too.
 
 :func:`dropout_mask` is the wrapper the model calls: on a CUDA device it
 launches the kernel (and counts the launch in ``dropout_mask.launches``), on
@@ -62,9 +63,10 @@ def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return (p_hi >> 16) + (mid >> 32), mid & _U32
 
 
-def philox4x32_10(counter: torch.Tensor, seed: int) -> torch.Tensor:
+def philox4x32_10(counter: torch.Tensor, seed: int | torch.Tensor) -> torch.Tensor:
     """Philox4x32-10 of the 64-bit ``counter`` values (int64, as counter
-    words ``(lo, hi, 0, 0)``) under the key ``(seed, 0)``.  Returns int64
+    words ``(lo, hi, 0, 0)``) under the key ``(seed, 0)``; ``seed`` is an
+    int or a 0-d int64 tensor on ``counter``'s device.  Returns int64
     ``[..., 4]`` holding the four uint32 output words."""
     c0, c1 = counter & _U32, counter >> 32
     c2 = torch.zeros_like(counter)
@@ -108,11 +110,12 @@ def _check_table(seeds: torch.Tensor, slot: int, device: torch.device) -> None:
         raise IndexError(f"slot {slot} outside a seed table of {seeds.numel()}")
 
 
-def _seed_value(seed, slot: int) -> int:
-    """The uint32 seed an int or ``seeds[slot]`` gives (read on the host)."""
+def _seed_value(seed, slot: int) -> int | torch.Tensor:
+    """The uint32 seed an int gives, or ``seeds[slot]`` as a 0-d int64
+    tensor on the table's device (no host read)."""
     if isinstance(seed, torch.Tensor):
         _check_table(seed, slot, seed.device)
-        return int(seed[slot]) & _U32
+        return seed[slot].to(torch.int64) & _U32
     _check_seed(seed)
     return seed
 
@@ -124,7 +127,7 @@ def _check(keep_prob, dtype: torch.dtype) -> None:
         raise ValueError(f"keep_prob must lie in (0, 1], got {keep_prob}")
 
 
-def _bits(seed: int, n: int, device) -> torch.Tensor:
+def _bits(seed: int | torch.Tensor, n: int, device) -> torch.Tensor:
     """The first ``n`` Philox words of ``seed`` (int64 holding uint32)."""
     groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
     return philox4x32_10(groups, seed).reshape(-1)[:n]
@@ -145,7 +148,7 @@ def dropout_mask_reference(
         scale = (1.0 / kp).to(torch.float32)
     else:
         thresh = keep_threshold(keep_prob)
-        scale = torch.tensor(np.float32(1.0 / keep_prob), device=device)
+        scale = torch.full((), float(np.float32(1.0 / keep_prob)), dtype=torch.float32, device=device)
     return torch.where(bits < thresh, scale, torch.zeros((), device=device)).to(dtype)
 
 
@@ -154,7 +157,7 @@ def philox_uniform_reference(seed, shape, scale: float = 1.0, device="cpu", *, s
     ``scale``) from the same Philox bits; ``seed`` as in
     :func:`dropout_mask_reference`."""
     u = (_bits(_seed_value(seed, slot), math.prod(shape), device) >> 8).to(torch.float32) * 2.0**-24
-    return (u * torch.tensor(np.float32(scale), device=device)).reshape(shape)
+    return (u * torch.full((), float(np.float32(scale)), dtype=torch.float32, device=device)).reshape(shape)
 
 
 @functools.cache

@@ -19,6 +19,18 @@ for the flagship they are ``bridge.state_to_jax`` and
 ``(state, metrics)``, metrics a dict of 0-d tensors; it may update the
 state in place.  Metrics stay on the device as one stacked tensor per
 iteration and are copied to the host once per flush (``_Pending.drain``).
+
+``LoopConfig.jit_step`` (default True, as the JAX field): when ``rand`` is a
+``Randomness`` on a CUDA device, each iteration is one replay of a CUDA
+graph (``train.capture.CapturedStep``: the first iteration or two run
+eagerly as warm-up, the next is captured against the state's own tensors),
+the counterpart of the JAX loop's ``jax.jit(step_fn, donate_argnums=0)``.
+Such a ``step_fn`` updates the state in place, draws through
+``rand.for_step(state.step)`` and advances ``state.step``; the tensors of a
+``batch`` on the host reach it on the device.  ``jit_step=False`` and the
+CPU run the step eagerly.  The metrics a replay returns are its static
+outputs: ``_Pending.add`` copies them (``torch.stack`` on the same stream)
+before the next replay overwrites them.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ from ..utils.logging import MetricLogger
 from ..utils.profiler import StepTimer, profile_step
 from ..utils.resume import guard_fresh_start, reap_stale_tmps
 from ..utils.watchdog import StepWatchdog
+from . import capture
+from .capture import CapturedStep
 
 __all__ = ["LoopConfig", "train_loop"]
 
@@ -56,9 +70,8 @@ def _prune_checkpoints(ckpt_dir: str, keep: int, prefix: str = "ckpt") -> None:
 
 @dataclass
 class LoopConfig:
-    """The JAX ``LoopConfig``'s fields but ``jit_step``: PyTorch runs the
-    step eagerly, so there is nothing to compile or to keep from
-    recompiling."""
+    """The JAX ``LoopConfig``'s fields.  ``jit_step`` captures the step in a
+    CUDA graph on the card (see the module's docstring)."""
 
     iters: int = 1000
     print_every: int = 100
@@ -74,6 +87,7 @@ class LoopConfig:
     save_every_secs: float | None = None
     keep_checkpoints: int | None = None
     allow_fresh_start: bool = False
+    jit_step: bool = True
 
 
 def _identity(x):
@@ -161,10 +175,11 @@ def train_loop(
 
     logger.set_iteration(start_iter)
     pending = _Pending(logger)
+    run_step = _step_runner(step_fn, rand, cfg)
     watchdog = StepWatchdog.start_from_env(name="train_loop")
     try:
         state = _train_iterations(
-            state, step_fn, next_batch, rand, cfg, logger, start_iter, pending, watchdog,
+            state, run_step, next_batch, cfg, logger, start_iter, pending, watchdog,
             test_fn=test_fn, callback=callback, data_state=data_state, to_blob=to_blob,
         )
     finally:
@@ -196,7 +211,25 @@ def _save(cfg: LoopConfig, logger: MetricLogger, state, iteration: int, data_sta
                             {"params": params, "iteration": iteration + 1})
 
 
-def _train_iterations(state, step_fn, next_batch, rand, cfg, logger, start_iter, pending,
+def _step_runner(step_fn: Callable, rand, cfg: LoopConfig) -> Callable:
+    """``run(state, batch) -> (state, metrics)``: the captured step where
+    ``cfg.jit_step`` and ``rand`` runs on the card, else ``step_fn``
+    eagerly."""
+    run = capture.step_runner(step_fn, rand, name=getattr(step_fn, "__qualname__", "step_fn"),
+                              jit_step=cfg.jit_step)
+    if not isinstance(run, CapturedStep):
+        return lambda state, batch: run(state, *batch)
+
+    def run_captured(state, batch):
+        new_state, metrics = run(state, *batch)
+        if new_state is not state:
+            raise RuntimeError(f"{run.name}: a captured step updates its state in place")
+        return new_state, metrics
+
+    return run_captured
+
+
+def _train_iterations(state, run_step, next_batch, cfg, logger, start_iter, pending,
                       watchdog, *, test_fn, callback, data_state, to_blob):
     timer = StepTimer()
     last_print = last_save = time.time()
@@ -205,11 +238,11 @@ def _train_iterations(state, step_fn, next_batch, rand, cfg, logger, start_iter,
             batch = next_batch()
         if cfg.profile_iter is not None and iteration == cfg.profile_iter:
             with profile_step(cfg.profile_dir):
-                state, metrics = step_fn(state, *batch, rand)
+                state, metrics = run_step(state, batch)
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
         else:
-            state, metrics = step_fn(state, *batch, rand)
+            state, metrics = run_step(state, batch)
 
         pending.add(metrics)
         if cfg.nan_check_every and iteration % cfg.nan_check_every == 0:

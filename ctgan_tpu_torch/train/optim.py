@@ -15,6 +15,18 @@ RMSProp (``ctgan_tpu/train/optim.py::rmsprop``, TF semantics):
 ``ms = rho * ms + (1 - rho) * g^2``, ``mom = momentum * mom + lr * g /
 sqrt(ms + eps)``, ``p -= mom``; eps inside the square root.
 
+Per-step scalars (Adam's ``lr_t``, the Theano Adam's corrections and
+learning rate, RMSProp's learning rate) are computed on the host in fp32
+(:meth:`scalars`; ``t`` advances there) and reach the update as a 1-D fp32
+tensor on the parameters' device (:func:`device_scalars`): from the step's
+provider (``Randomness.from_host``), so that a CUDA graph that captured the
+update reads each step's values from its input buffer instead of replaying
+the first step's.  The update multiplies by that tensor:
+``p -= (lr_t * m) / (sqrt(v) + eps)``, the JAX expression's order
+(``ctgan_tpu/train/optim.py:84``), where ``addcdiv`` with a float value
+would take ``lr_t * (m / d)`` on the card; it costs two multi-tensor passes
+more than one ``addcdiv`` and one temporary per parameter.
+
 Parameters and optimiser state are updated in place (the JAX update returns
 new arrays); each update is one multi-tensor pass per term.
 :func:`clip_params_by_value` clips in place too; the gradient transforms
@@ -28,14 +40,27 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.rng import Randomness, host_to_device
+
 __all__ = [
     "Adam", "AdamTheano", "RMSProp", "adam_mismatches", "clip_grads_by_global_norm", "clip_grads_by_value",
-    "clip_params_by_value", "global_norm",
+    "clip_params_by_value", "device_scalars", "global_norm",
 ]
 
 
 def _lr_at(lr, step: int) -> float:
     return lr(step) if callable(lr) else lr
+
+
+def device_scalars(rand, host: Callable[[int], np.ndarray], step: int, params: dict) -> torch.Tensor:
+    """``host(step)``, an update's fp32 scalars, as a 1-D tensor on the
+    parameters' device.  A provider (``core.rng.Randomness`` or a static
+    one) hands it out, so a captured step reads each step's values; without
+    one (``rand`` None or a test's injected draws) ``host`` runs now and its
+    values are copied over."""
+    if isinstance(rand, Randomness):
+        return rand.from_host(host, step)
+    return host_to_device(torch.from_numpy(host(step)), next(iter(params.values())).device)
 
 
 class Adam:
@@ -56,11 +81,20 @@ class Adam:
         lr_t = np.float32(lr) * np.sqrt(one - np.float32(self.beta2) ** t32)
         return float(lr_t / (one - np.float32(self.beta1) ** t32))
 
+    def scalars(self, t: float, step: int) -> np.ndarray:
+        """``[lr_t]`` in fp32 for the ``t``-th update at ``step``."""
+        return np.array([self.lr_t(t, step)], np.float32)
+
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict, step: int) -> None:
-        """One step on ``params`` and ``state`` in place."""
-        state["t"] += 1.0
-        lr_t = self.lr_t(state["t"], step)
+    def update(self, grads: dict, state: dict, params: dict, step: int, rand=None) -> None:
+        """One step on ``params`` and ``state`` in place; ``t`` advances on
+        the host where the scalars are computed."""
+
+        def host(step: int) -> np.ndarray:
+            state["t"] += 1.0
+            return self.scalars(state["t"], step)
+
+        lr_t = device_scalars(rand, host, step, params)[0]
         names = list(params)
         ps = [params[k] for k in names]
         gs = [grads[k] for k in names]
@@ -72,7 +106,9 @@ class Adam:
         torch._foreach_addcmul_(vs, gs, gs, value=1.0 - self.beta2)
         denom = torch._foreach_sqrt(vs)
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(ps, ms, denom, value=-lr_t)
+        delta = torch._foreach_mul(ms, lr_t)
+        torch._foreach_div_(delta, denom)
+        torch._foreach_sub_(ps, delta)
 
 
 class AdamTheano:
@@ -94,12 +130,24 @@ class AdamTheano:
             "t": 1.0,
         }
 
+    def scalars(self, t: float, step: int) -> np.ndarray:
+        """``[1 - mom1^t, 1 - mom2^t, lr]`` in fp32 for the update with
+        count ``t`` at ``step``."""
+        t32, one = np.float32(t), np.float32(1.0)
+        return np.array([one - np.float32(self.mom1) ** t32, one - np.float32(self.mom2) ** t32,
+                         np.float32(_lr_at(self.lr, step))], np.float32)
+
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict, step: int) -> None:
-        """One step on ``params`` and ``state`` in place."""
-        t32, one = np.float32(state["t"]), np.float32(1.0)
-        c1 = float(one - np.float32(self.mom1) ** t32)
-        c2 = float(one - np.float32(self.mom2) ** t32)
+    def update(self, grads: dict, state: dict, params: dict, step: int, rand=None) -> None:
+        """One step on ``params`` and ``state`` in place; ``t`` advances on
+        the host where the scalars are computed."""
+
+        def host(step: int) -> np.ndarray:
+            out = self.scalars(state["t"], step)
+            state["t"] += 1.0
+            return out
+
+        c1, c2, lr = device_scalars(rand, host, step, params)
         names = list(params)
         ps = [params[k] for k in names]
         gs = [grads[k] for k in names]
@@ -109,12 +157,13 @@ class AdamTheano:
         torch._foreach_add_(ms, gs, alpha=1.0 - self.mom1)
         torch._foreach_mul_(vs, self.mom2)
         torch._foreach_addcmul_(vs, gs, gs, value=1.0 - self.mom2)
-        m_hat = torch._foreach_div(ms, c1)
+        delta = torch._foreach_div(ms, c1)
         denom = torch._foreach_div(vs, c2)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_sqrt_(denom)
-        torch._foreach_addcdiv_(ps, m_hat, denom, value=-float(_lr_at(self.lr, step)))
-        state["t"] += 1.0
+        torch._foreach_mul_(delta, lr)
+        torch._foreach_div_(delta, denom)
+        torch._foreach_sub_(ps, delta)
 
 
 class RMSProp:
@@ -128,9 +177,14 @@ class RMSProp:
             "mom": {k: torch.zeros_like(v) for k, v in params.items()},
         }
 
+    def scalars(self, step: int) -> np.ndarray:
+        """``[lr]`` in fp32 at ``step``."""
+        return np.array([_lr_at(self.lr, step)], np.float32)
+
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict, step: int) -> None:
+    def update(self, grads: dict, state: dict, params: dict, step: int, rand=None) -> None:
         """One step on ``params`` and ``state`` in place."""
+        lr = device_scalars(rand, self.scalars, step, params)[0]
         names = list(params)
         ps = [params[k] for k in names]
         gs = [grads[k] for k in names]
@@ -140,7 +194,7 @@ class RMSProp:
         torch._foreach_addcmul_(mss, gs, gs, value=1.0 - self.rho)
         denom = torch._foreach_add(mss, self.eps)
         torch._foreach_sqrt_(denom)
-        delta = torch._foreach_mul(gs, _lr_at(self.lr, step))
+        delta = torch._foreach_mul(gs, lr)
         torch._foreach_div_(delta, denom)
         torch._foreach_mul_(moms, self.momentum)
         torch._foreach_add_(moms, delta)

@@ -11,7 +11,8 @@ with linear LR decay.  A ``clean_pass`` at keep probability 1 gives the
 accuracy monitors.
 
 Every random draw comes from the ``rand`` argument
-(:class:`ctgan_tpu_torch.core.rng.Randomness` or a test's injected draws).
+(:class:`ctgan_tpu_torch.core.rng.Randomness` or a test's injected draws),
+and so do the optimisers' per-step scalars (``optim.device_scalars``).
 The state is updated in place.
 
 :meth:`AcganTrainer.dev_cost`, :meth:`~AcganTrainer.sample` and
@@ -145,13 +146,15 @@ class AcganTrainer:
 
     def gen_substep(self, state: AcganState, rand) -> torch.Tensor:
         """G update.  At step 0 the update is computed and dropped, as the
-        JAX step blends it away, so both draw the same randomness."""
+        JAX step blends it away, so both draw the same randomness.  A
+        captured step (``train.capture``) runs step 0 eagerly and is
+        captured at a later step, so its graph always takes the update."""
         cost = self.gen_loss(state.gen_params, state.disc_params, rand)
         names = list(state.gen_params)
         grads = torch.autograd.grad(cost, [state.gen_params[k] for k in names])
         if state.step > 0:
             self.gen_optimizer.update(dict(zip(names, grads)), state.gen_opt,
-                                      state.gen_params, state.step)
+                                      state.gen_params, state.step, rand)
         return cost.detach()
 
     @staticmethod
@@ -167,7 +170,7 @@ class AcganTrainer:
         names = list(state.disc_params)
         grads = torch.autograd.grad(cost, [state.disc_params[k] for k in names])
         self.disc_optimizer.update(dict(zip(names, grads)), state.disc_opt,
-                                   state.disc_params, state.step)
+                                   state.disc_params, state.step, rand)
         return {k: v.detach() for k, v in metrics.items()}
 
     def step(self, state: AcganState, real_stack: torch.Tensor, label_stack: torch.Tensor,

@@ -22,7 +22,8 @@ and ``clip_global_norm`` transform the critic's gradients before its
 update; the latter reports ``gradnorm``.
 
 Every random draw comes from the ``rand`` argument
-(:class:`ctgan_tpu_torch.core.rng.Randomness` or a test's injected draws).
+(:class:`ctgan_tpu_torch.core.rng.Randomness` or a test's injected draws),
+and so do the optimisers' per-step scalars (``optim.device_scalars``).
 The state is updated in place.  :meth:`GanTrainer.dev_cost` and
 :meth:`~GanTrainer.sample` are the evaluation functions
 (``disc_cost_fn`` and ``sample_fn`` of the JAX trainer).
@@ -157,13 +158,15 @@ class GanTrainer:
 
     def gen_substep(self, state: GanState, rand) -> torch.Tensor:
         """G update.  At step 0 the update is computed and dropped, as the
-        JAX step blends it away, so both draw the same randomness."""
+        JAX step blends it away, so both draw the same randomness.  A
+        captured step (``train.capture``) runs step 0 eagerly and is
+        captured at a later step, so its graph always takes the update."""
         cost = self.gen_loss(state.gen_params, state.disc_params, rand)
         names = list(state.gen_params)
         grads = torch.autograd.grad(cost, [state.gen_params[k] for k in names])
         if state.step > 0:
             self.gen_optimizer.update(dict(zip(names, grads)), state.gen_opt,
-                                      state.gen_params, state.step)
+                                      state.gen_params, state.step, rand)
         return cost.detach()
 
     def critic_substep(self, state: GanState, real: torch.Tensor, rand) -> dict:
@@ -176,7 +179,7 @@ class GanTrainer:
             grads = clip_grads_by_value(grads, cfg.clip_grad_value)
         if cfg.clip_global_norm is not None:
             grads, metrics["gradnorm"] = clip_grads_by_global_norm(grads, cfg.clip_global_norm)
-        self.disc_optimizer.update(grads, state.disc_opt, state.disc_params, state.step)
+        self.disc_optimizer.update(grads, state.disc_opt, state.disc_params, state.step, rand)
         if cfg.mode == "wgan":
             clip_params_by_value(state.disc_params, cfg.clip_value)
         return {k: v.detach() for k, v in metrics.items()}

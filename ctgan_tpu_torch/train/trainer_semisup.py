@@ -25,7 +25,9 @@ Each loss hands its classifier passes D's params with every weight-normed
 layer's applied weight computed once
 (``models.classifiers.with_applied_weights``); the passes share it.
 Every draw comes from ``rand`` (a ``core.rng.Randomness`` or a test's
-injected draws) in the JAX trainer's order.  The state is updated in place.
+injected draws) in the JAX trainer's order, and so do the optimisers'
+per-step scalars (``t`` advances on the host, ``optim.device_scalars``).
+The state is updated in place.
 """
 
 from __future__ import annotations
@@ -149,7 +151,7 @@ class SslTrainer:
                                                      x_unl, targets, rand)
         names = list(state.disc_params)
         grads = torch.autograd.grad(cost, [state.disc_params[k] for k in names])
-        self.disc_optimizer.update(dict(zip(names, grads)), state.disc_opt, state.disc_params, state.step)
+        self.disc_optimizer.update(dict(zip(names, grads)), state.disc_opt, state.disc_params, state.step, rand)
         with torch.no_grad():
             avgs = [state.avg_params[k] for k in names]
             torch._foreach_add_(avgs, torch._foreach_sub([state.disc_params[k] for k in names], avgs),
@@ -157,7 +159,7 @@ class SslTrainer:
         g_cost = self.gen_loss(state.gen_params, state.disc_params, x_unl2, rand)
         names = list(state.gen_params)
         grads = torch.autograd.grad(g_cost, [state.gen_params[k] for k in names])
-        self.gen_optimizer.update(dict(zip(names, grads)), state.gen_opt, state.gen_params, state.step)
+        self.gen_optimizer.update(dict(zip(names, grads)), state.gen_opt, state.gen_params, state.step, rand)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss_gen"] = g_cost.detach()

@@ -23,6 +23,7 @@ from ctgan_tpu.data import stack_batches as jax_stack_batches
 
 from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
 from ctgan_tpu_torch.apps import wgan_lsun128 as app128
+from ctgan_tpu_torch.apps.common import HostFeed
 from ctgan_tpu_torch.data import images_dir, native, stack_batches
 from ctgan_tpu_torch.data.synthetic import synthetic_images
 from ctgan_tpu_torch.models import lsun128
@@ -200,7 +201,7 @@ def test_app64_trains_on_the_host_paths(tmp_path, png_dir, monkeypatch, source):
                        inception_every=0, out_dir=str(tmp_path / "run"), **kw)
     run = app64.setup(cfg, "cpu")
     assert (run.sampler is None) and (run.feed is not None) and ((run.pool is None) == (source != "native"))
-    real = run.feed()
+    real = HostFeed.to_real(run.feed.next())
     assert real.shape == (2, 2, 3 * 64 * 64) and real.dtype == torch.float32
     assert -1.0 <= float(real.min()) and float(real.max()) <= 1.0
     run.feed.close()
@@ -217,7 +218,7 @@ def test_app64_native_without_the_library_takes_the_directory_path(monkeypatch):
     run = app64.setup(app64.Config(DIM=8, BATCH_SIZE=2, CRITIC_ITERS=2, input="native"), "cpu")
     try:
         assert run.pool is None and run.sampler is None
-        assert run.feed().shape == (2, 2, 3 * 64 * 64)
+        assert run.feed.next().shape == (2, 2, 3 * 64 * 64)
     finally:
         run.feed.close()
 
@@ -237,7 +238,7 @@ def test_app128_trains_on_the_directory_path(tmp_path, png_dir, monkeypatch):
                         DATA_DIR=str(png_dir), out_dir=str(tmp_path))
     run = app128.setup(cfg, "cpu")
     want = next(jax_stack_batches(jax_images_dir.image_dir_generator(str(png_dir), 2, 128, seed=0), 2))
-    got = run.feed()
+    got = HostFeed.to_real(run.feed.next())
     run.feed.close()
     np.testing.assert_array_equal(got.numpy(), 2.0 * (want.reshape(2, 2, -1).astype(np.float32) / 255.0 - 0.5))
     state, records = app128.main(cfg=cfg, device="cpu")

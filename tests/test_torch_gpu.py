@@ -22,6 +22,7 @@ from ctgan_tpu_torch.kernels import (
     seed_table,
 )
 from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
+from ctgan_tpu_torch.apps.common import gan_batches
 from ctgan_tpu_torch.models import resnet_cifar
 from ctgan_tpu_torch.ops import batchnorm, dropout
 from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
@@ -226,7 +227,7 @@ def test_64px_step_on_the_card_goes_through_the_kernel(cuda):
     for policy in ("float32", "bfloat16"):
         before, uniforms = dropout_mask.launches, philox_uniform.launches
         with precision_policy(policy):
-            _, metrics = step(run.state, run.rand)
+            _, metrics = step(run.state, *gan_batches(run)(run.state.step), run.rand)
         assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
         assert all(math.isfinite(float(v)) for v in metrics.values())
 
@@ -263,7 +264,7 @@ def test_dcgan_step_on_the_card_goes_through_the_kernel(cuda, model):
     for policy in ("float32", "bfloat16"):
         before, uniforms = dropout_mask.launches, philox_uniform.launches
         with precision_policy(policy):
-            _, metrics = step(run.state, run.rand)
+            _, metrics = step(run.state, *gan_batches(run)(run.state.step), run.rand)
         assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
         assert all(math.isfinite(float(v)) for v in metrics.values())
 
@@ -288,7 +289,7 @@ def test_lsun128_step_on_the_card_goes_through_the_kernel(cuda):
     for policy in ("float32", "bfloat16"):
         before, uniforms = dropout_mask.launches, philox_uniform.launches
         with precision_policy(policy):
-            _, metrics = step(run.state, run.rand)
+            _, metrics = step(run.state, *gan_batches(run)(run.state.step), run.rand)
         assert dropout_mask.launches - before == 63 and philox_uniform.launches == uniforms
         assert all(math.isfinite(float(v)) for v in metrics.values())
 
@@ -301,6 +302,91 @@ def test_resnet101_step_on_the_card_launches_no_mask(cuda):
     pool = (np.random.default_rng(0).integers(0, 256, (64, 3 * 64 * 64), dtype=np.uint8), np.zeros(64, np.int64))
     run = app64.setup(app64.Config(ARCH="resnet101", DIM=16, BATCH_SIZE=4, BF16=False), cuda, pool)
     before = dropout_mask.launches
-    _, metrics = app64.make_step_fn(run)(run.state, run.rand)
+    _, metrics = app64.make_step_fn(run)(run.state, *gan_batches(run)(0), run.rand)
     assert dropout_mask.launches == before
     assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+def _captured_against_eager(step_fn, rand, fresh, inputs, iters: int, expected_masks: int) -> None:
+    """``iters`` iterations of ``step_fn`` from two copies of one state,
+    eager and captured (``train.capture.step_runner``), cuDNN
+    deterministic: every state array and metric equal, and the captured
+    arm's replays launching ``expected_masks`` masks each."""
+    from ctgan_tpu_torch.bridge import state_to_jax
+    from ctgan_tpu_torch.train.capture import CapturedStep, step_runner
+
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        arms = {}
+        for jit_step in (False, True):
+            state, run = fresh(), step_runner(step_fn, rand, name="gpu test", jit_step=jit_step)
+            rows = []
+            for it in range(iters):
+                before = dropout_mask.launches
+                _, metrics = run(state, *inputs(it))
+                rows.append(torch.stack([metrics[k].float() for k in sorted(metrics)]))
+            assert dropout_mask.launches - before == expected_masks
+            assert isinstance(run, CapturedStep) == jit_step and (not jit_step or run.captured)
+            arms[jit_step] = (state_to_jax(state), torch.stack(rows).cpu())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    (want, want_rows), (got, got_rows) = arms[False], arms[True]
+    assert torch.equal(got_rows, want_rows)
+    for field, value in want.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                if isinstance(v, dict):
+                    for name, arr in v.items():
+                        assert np.array_equal(got[field][k][name], arr), (field, k, name)
+                else:
+                    assert np.array_equal(got[field][k], v), (field, k)
+        else:
+            assert np.array_equal(got[field], value), field
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_captured_flagship_step_equals_the_eager_one(cuda, policy):
+    """Five flagship iterations at dim 16 (two warm-up, the capture, two
+    replays) against five eager ones: max diff 0."""
+    from ctgan_tpu_torch.apps import ct_gan_cifar_resnet as flagship_app
+    from ctgan_tpu_torch.bridge import state_from_jax, state_to_jax
+    from ctgan_tpu_torch.train import AcganState
+
+    with precision_policy(policy):
+        fl = flagship_app.setup(flagship_app.Config(DIM_G=16, DIM_D=16, BATCH_SIZE=4, N_CRITIC=2, n_examples=256,
+                                                    BF16=False), cuda)
+        blob = state_to_jax(fl.state)
+        _captured_against_eager(flagship_app.make_step_fn(fl), fl.rand, lambda: state_from_jax(blob, cuda, AcganState),
+                                lambda it: (fl.sampler.host_indices(it),), 5, 3 + 6 * 2)
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_captured_good64_step_equals_the_eager_one(cuda, policy):
+    """Five iterations of the 64 px app's step at dim 16 against five eager
+    ones: max diff 0."""
+    from ctgan_tpu_torch.bridge import state_from_jax, state_to_jax
+    from ctgan_tpu_torch.train import GanState
+
+    pool = (np.random.default_rng(0).integers(0, 256, (64, 12288), dtype=np.uint8), np.zeros(64, np.int64))
+    with precision_policy(policy):
+        run = app64.setup(app64.Config(DIM=16, BATCH_SIZE=4, BF16=False), cuda, pool)
+        blob = state_to_jax(run.state)
+        _captured_against_eager(app64.make_step_fn(run), run.rand, lambda: state_from_jax(blob, cuda, GanState),
+                                gan_batches(run), 5, 63)
+
+
+def test_captured_step_with_the_plain_mask_equals_the_eager_one(cuda):
+    """``CUDA_DROPOUT=False`` (the plain mask, seeded from the device seed
+    table in the captured arm and from the host in the eager one): five
+    iterations of the 64 px app's step at dim 16 captured against eager,
+    max diff 0, no kernel launch."""
+    from ctgan_tpu_torch.bridge import state_from_jax, state_to_jax
+    from ctgan_tpu_torch.train import GanState
+
+    pool = (np.random.default_rng(0).integers(0, 256, (64, 12288), dtype=np.uint8), np.zeros(64, np.int64))
+    with precision_policy("float32"):
+        run = app64.setup(app64.Config(DIM=16, BATCH_SIZE=4, BF16=False, CUDA_DROPOUT=False), cuda, pool)
+        blob = state_to_jax(run.state)
+        _captured_against_eager(app64.make_step_fn(run), run.rand, lambda: state_from_jax(blob, cuda, GanState),
+                                gan_batches(run), 5, 0)

@@ -2,7 +2,8 @@
 resumed run equals an uninterrupted one in every variant (the ensemble
 buffers too), ``ssl_state.npz`` moves between the JAX app and the port both
 ways, the approximate resume from the tracked parameter files, the
-fresh-start guard, and the JAX dispatch modes refused.
+fresh-start guard.  The JAX dispatch modes (``chunk``, ``epoch_scan``) are
+in ``tests/test_torch_capture.py``.
 
 MNIST runs its real nets on 600 synthetic images (6 steps an epoch);
 CIFAR-10 runs ``tests/torch_tiny_ssl.py``'s tiny nets on 200 (2 steps).
@@ -171,13 +172,6 @@ def test_fresh_start_guard(small, tmp_path):
         _run("mnist", out, epochs=2)
     state, records = _run("mnist", out, epochs=1, allow_fresh_start=True)
     assert state.step == 6 and [r["iteration"] for r in records] == [1]
-
-
-@pytest.mark.parametrize("variant,flag", [("mnist", {"epoch_scan": True}), ("cifar", {"epoch_scan": True}),
-                                          ("cifar", {"chunk": 25})])
-def test_jax_dispatch_modes_raise(small, tmp_path, variant, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
-        _run(variant, tmp_path, epochs=1, **flag)
 
 
 def test_config_flags_parse():
