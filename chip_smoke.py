@@ -50,8 +50,12 @@ Phases, each printed with its seconds:
    temporary ``out_dir``, through the train loop: checkpoints every 5
    iterations, a sample grid and the dev cost every 5, IS and FID at
    iteration 9 over 5,000 generated images (cut from 50,000 for time) with
-   a TrainedScorer fitted on the card; the files are checked and the grids
-   decoded.  Then ``main`` again with ``ITERS=12`` in the same directory,
+   the Inception-2015 scorer on a synthetic full-width graph
+   (``$CTGAN_INCEPTION_PB`` set for this phase alone; phases 31-32); the
+   files are checked and the grids decoded.  Then the TrainedScorer the
+   app fits without that file is fitted into the same ``out_dir``
+   (scorer_fit), for the resume and the CIFAR-10 conv app to read as
+   before.  Then ``main`` again with ``ITERS=12`` in the same directory,
    which must resume at iteration 10.  Then the same 10 iterations with
    ``BF16=False`` (fp32), and 4 iterations with ``NORMALIZATION_D=True``.
    Each kernel's launches are counted in each call;
@@ -159,6 +163,28 @@ Phases, each printed with its seconds:
 30. epoch_scan_equal (after train_ssl_mnist): the MNIST app's first epoch
     with ``epoch_scan`` against train_ssl_mnist's (``chunk`` 1): every
     array of the state equal, the logged means within 1e-6 relative.
+31. inception_ref (before train): the synthetic Inception-2015 graph of
+    ``tests/torch_inception_graph.py`` (the published architecture at full
+    width, 94 convs, seeded random weights) written and run by the port's
+    ``eval.Inception2015`` on the card on 20 seeded 32x32 images, against
+    the JAX package's outputs pinned in ``INCEPTION_REF``: pool_3 within
+    1e-4 of the largest feature, softmax within 1e-5, IS within 1e-4
+    relative, no unsupported op;
+32. inception_score (after train): the train phase scored with that graph
+    (``comparable``); the scorer's seconds per 1,000 images, host and
+    device ms of a batch of 100, and the port on the CPU against the card
+    on 20 images' features;
+33. aot_serve (after the 128 px phases): ``apps.generate --aot_save`` at
+    batch 1024 on the JAX run's checkpoint in fp32 and bf16, each artifact
+    served by ``--aot --serve_iters 20`` in a fresh ``python -m
+    ctgan_tpu_torch generate`` process beside the eager rate of
+    jax_checkpoint; ``--n 100`` samples of an artifact at batch 100 equal
+    to eager (max diff 0, cuDNN deterministic), and an artifact recorded
+    for another card raises ``AotMismatch``;
+34. cli (inside aot_serve): ``python -m ctgan_tpu_torch list`` exits 0
+    with every app, an unknown app exits 2;
+35. onehot_toys: both toys, 300 iterations each, through ``python -m
+    ctgan_tpu_torch onehot-toys`` on the card: ms/iter, finite costs.
 
 Every app run above trains as the app does on the card: each iteration
 after one or two eager warm-up iterations is a replay of one captured CUDA
@@ -177,6 +203,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -195,6 +222,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ctgan_tpu_torch.__main__ import APPS as CLI_APPS
 from ctgan_tpu_torch.apps import ct_cifar_ssl as cifar_ssl_app
 from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
 from ctgan_tpu_torch.apps import ct_gan_cifar as cifar_app
@@ -203,12 +231,13 @@ from ctgan_tpu_torch.apps import ct_gan_mnist as mnist_app
 from ctgan_tpu_torch.apps import ct_mnist_ssl as mnist_ssl_app
 from ctgan_tpu_torch.apps import generate, ssl_common
 from ctgan_tpu_torch.apps import wgan_lsun128 as app128
-from ctgan_tpu_torch.apps.common import gan_batches
+from ctgan_tpu_torch.apps.common import gan_batches, pick_scorer
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
 from ctgan_tpu_torch.core.rng import RING, SEED_SLOTS
 from ctgan_tpu_torch.data import DeviceSampler, cifar10, mnist, native, synthetic_images
-from ctgan_tpu_torch.eval import TrainedScorer
+from ctgan_tpu_torch.eval import Inception2015, TrainedScorer, inception_score_from_probs
+from ctgan_tpu_torch.eval.inception2015 import strict_fp32
 from ctgan_tpu_torch.kernels import (
     SOURCES,
     dropout_mask,
@@ -235,6 +264,9 @@ from ctgan_tpu_torch.train import capture as capture_mod
 from ctgan_tpu_torch.train.capture import CapturedStep
 from ctgan_tpu_torch.train.optim import adam_mismatches
 from ctgan_tpu_torch.utils import load_checkpoint, make_grid, save_checkpoint
+from ctgan_tpu_torch.utils.aot import RECORD as AOT_RECORD
+from ctgan_tpu_torch.utils.aot import AotMismatch, load_aot
+from ctgan_tpu_torch.utils.aot import read_record as read_aot_record
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 TRAIN_ITERS = 10
@@ -847,19 +879,6 @@ def _substep_checker(device, *, bf16: bool, lr: float, beta1: float, zero_grad, 
     return check, report, failures
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """fp32 convolutions in full fp32 on the card (cuDNN's default is TF32)."""
-    old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = old[0]
-        torch.set_float32_matmul_precision(old[1])
-
-
 def _lockstep_report(what: str, device, precision: str, iters: int, report: dict, failures: list) -> float:
     line = (f"{what}{device} vs cpu in {precision}, {iters} iterations substep by substep: max param diff "
             f"{report['diff']:.3g}, {report['moved'] / max(report['total'], 1):.5f} of the updated elements "
@@ -918,7 +937,7 @@ def phase_cuda_vs_cpu(device, *, precision="float32", dim=16, batch=4, n_critic=
                 dev = float((g - w).abs().max() / w.abs().max())
                 if dev > BF16_BOUND:
                     raise AssertionError(f"bf16 output {i} on {device} vs cpu: {dev:.3g} of its scale")
-        with _no_tf32():
+        with strict_fp32():
             _lockstep(device, params, mcfg, acfg, iters=iters, seed=seed, check=check)
     return _lockstep_report("", device, precision, iters, report, failures)
 
@@ -974,7 +993,7 @@ def phase_cuda_vs_cpu_gan(device, *, precision="float32", mode="wgan-ct", dim=16
     bf16 = precision == "bfloat16"
     check, report, failures = _substep_checker(device, bf16=bf16, lr=gcfg.lr, beta1=gcfg.beta1,
                                                zero_grad=good64.zero_grad_params(mode), elementwise=False)
-    with precision_policy(precision), _no_tf32():
+    with precision_policy(precision), strict_fp32():
         _lockstep_gan(device, trainer, good64.init_params(dim, mode, seed), iters=iters, seed=seed, check=check)
     return _lockstep_report(f"good64 {mode}: ", device, precision, iters, report, failures)
 
@@ -994,7 +1013,7 @@ def phase_cuda_vs_cpu_dcgan(device, *, precision="float32", dim=64, batch=50, n_
     bf16 = precision == "bfloat16"
     check, report, failures = _substep_checker(device, bf16=bf16, lr=gcfg.lr, beta1=gcfg.beta1,
                                                zero_grad=dcgan.zero_grad_params("mnist", mode), elementwise=False)
-    with precision_policy(precision), _no_tf32():
+    with precision_policy(precision), strict_fp32():
         _lockstep_gan(device, trainer, dcgan.init_params("mnist", dim, mode, seed), iters=iters, seed=seed,
                       check=check, real_dim=784, low=0.0)
     return _lockstep_report(f"mnist {mode} dim {dim} batch {batch}: ", device, precision, iters, report, failures)
@@ -1179,7 +1198,8 @@ def phase_train(device, cfg: app.Config) -> dict:
     return dict(launches=launches, uniform_launches=uniforms, timed=f"{first}-{cfg.ITERS - 1}",
                 s_per_iter=float(np.mean(step_s[first:])) if step_s[first:] else None,
                 peak_bytes=peak, last=last, seconds=seconds, evals=evals,
-                scorer_fit_s=float(fit.group(1)) if fit else None)
+                scorer_fit_s=float(fit.group(1)) if fit else None,
+                scorer_line=next((line for line in stdout.splitlines() if line.startswith("IS scorer:")), None))
 
 
 def phase_resume(device, cfg: app.Config) -> dict:
@@ -1711,7 +1731,7 @@ def phase_dcgan_ref(device) -> dict:
     number within ``DCGAN_REF_BOUND``.  No kernel is launched (keep 1)."""
     before = dropout_mask.launches
     gaps = {}
-    with precision_policy("float32"), _no_tf32():
+    with precision_policy("float32"), strict_fp32():
         for arch in DCGAN_REF:
             gaps[arch] = _largest_gap(dcgan_ref_outputs(arch, device), DCGAN_REF[arch])
             print(f"dcgan_ref {arch} dim {DCGAN_REF_DIMS[arch]}: the port on {device} (fp32, TF32 off) against the "
@@ -1860,7 +1880,7 @@ def phase_lsun128_ref(device) -> float:
     against the JAX package's outputs pinned in ``LSUN128_REF``, every
     number within ``LSUN128_REF_BOUND``.  No kernel is launched (keep 1)."""
     before = dropout_mask.launches
-    with precision_policy("float32"), _no_tf32():
+    with precision_policy("float32"), strict_fp32():
         gap = _largest_gap(lsun128_ref_outputs(device), LSUN128_REF)
     print(f"lsun128_ref: the port's full-width G on {N_LSUN128_REF} images and D at keep 1 on {device} (fp32, "
           f"TF32 off) against the JAX package's pinned outputs: largest gap {gap:.3g} (bound {LSUN128_REF_BOUND})")
@@ -1893,7 +1913,7 @@ def phase_cuda_vs_cpu_lsun128(device, *, precision="float32", batch=4, n_critic=
     check, report, failures = _substep_checker(device, bf16=bf16, lr=gcfg.lr, beta1=gcfg.beta1,
                                                zero_grad=lsun128.zero_grad_params(LSUN128_SMALL), elementwise=False,
                                                bf16_loss_bound=BF16_GRAD_BOUND)
-    with precision_policy(precision), _no_tf32():
+    with precision_policy(precision), strict_fp32():
         _lockstep_gan(device, trainer, lsun128.init_params(LSUN128_SMALL, seed), iters=iters, seed=seed,
                       check=check, real_dim=3 * 128 * 128)
     return _lockstep_report(f"lsun128 small, batch {batch}: ", device, precision, iters, report, failures)
@@ -2048,7 +2068,7 @@ def phase_cuda_vs_cpu_ssl(device, *, variant: str = "cifar", batch: int = 4, see
         metrics, _, _ = trainer.step(state, x_lab, labels, x_unl, x_unl2, targets, Randomness(seed, dev))
         return state, metrics
 
-    with precision_policy("float32"), _no_tf32():
+    with precision_policy("float32"), strict_fp32():
         dev_state, got = run(device)
         cpu_state, want = run("cpu")
     failures, report = [], {"diff": 0.0}
@@ -2137,7 +2157,7 @@ def phase_ssl_ref(device, n_test: int | None = None) -> dict:
     out = {}
     for arch in SSL_REF:
         sha = _sha256(SSL_REF_PARAMS[arch])
-        with precision_policy("float32"), _no_tf32():
+        with precision_policy("float32"), strict_fp32():
             gap = ssl_ref_gap(ssl_ref_outputs(arch, device), SSL_REF[arch])
         x, y = (torch.from_numpy(a[:n_test]).to(device) for a in ssl_test_set(arch))
         state = SslState({}, {}, {}, {}, _ssl_ref_params(arch, device))
@@ -2539,6 +2559,303 @@ def phase_epoch_scan_equal(device, first_epoch: dict, out_dir: str, records: lis
     return dict(state_diff=diff, means_rel=rel, steps=state.step)
 
 
+# ------------------------------------ Inception-2015, AOT serving, the CLI, the one-hot toys
+
+# The JAX package's Inception2015 (ctgan_tpu/eval/inception2015.py) on the synthetic graph of
+# tests/torch_inception_graph.py (seed 0, full width) and inception_ref_images(), fp32 on the CPU:
+# inception_ref_summary of its pool_3 features and softmax.  Recompute with
+#   python -m pytest tests/test_torch_chip_inception.py -k pinned
+INCEPTION_REF = {
+    "feat_absmax": 12.151993751525879,
+    "feat_at": [1.6294041872024536, 0.2587895691394806, 0.5362147688865662, 3.3579154014587402,
+                0.29608654975891113, 0.5122742056846619, 3.2742016315460205, 0.3603284955024719,
+                2.3420827388763428, 3.3387138843536377, 0.3037692606449127, 2.338197946548462,
+                3.2653138637542725, 4.683992862701416, 2.554983139038086, 3.321622371673584],
+    "prob_at": [1.5701888855801371e-07, 4.2227791709592566e-05, 5.495758159668185e-06, 0.0001302977470913902,
+                3.12119627778884e-05, 8.864380106388126e-06, 0.00011904672282980755, 3.328047023387626e-05,
+                7.172779987740796e-06, 0.00014811511209700257, 3.148709947708994e-05, 7.770498996251263e-06,
+                0.00013077487528789788, 4.3808919144794345e-05, 4.427122803463135e-06, 0.00013115927868057042],
+    "prob_max": [0.528052568435669, 0.5036943554878235, 0.5322967767715454, 0.5315610766410828, 0.557489275932312,
+                 0.5363160371780396, 0.4786074459552765, 0.5368396043777466, 0.5385033488273621, 0.5216654539108276,
+                 0.5211691856384277, 0.5061707496643066, 0.5440901517868042, 0.5404213070869446, 0.4908466339111328,
+                 0.5142076015472412, 0.5289731025695801, 0.4956495463848114, 0.5524141192436218, 0.5520904064178467],
+    "is": [1.000711287240333, 0.0005630831704596942],
+}
+N_INCEPTION_REF = 20
+INCEPTION_FEAT_BOUND = 1e-4  # pool_3, over the features' largest magnitude
+INCEPTION_PROB_BOUND = 1e-5  # softmax, absolute
+INCEPTION_IS_BOUND = 1e-4  # relative
+INCEPTION_SAMPLES = 5000  # timed, as the flagship phase scores them
+AOT_CKPT = JAX_RUN / "ckpt" / "ckpt_25000.npz"
+AOT_BATCH, AOT_SERVE_ITERS = 1024, 20
+TOY_ITERS = 300
+
+
+def inception_graph_module():
+    """``tests/torch_inception_graph.py`` (NumPy only), loaded from its file."""
+    spec = importlib.util.spec_from_file_location("torch_inception_graph", ROOT / "tests" / "torch_inception_graph.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def inception_ref_images() -> np.ndarray:
+    """``N_INCEPTION_REF`` seeded 32x32 RGB images valued 0-255, NHWC."""
+    return np.random.default_rng(0).integers(0, 256, (N_INCEPTION_REF, 32, 32, 3)).astype(np.float32)
+
+
+def inception_ref_summary(feats: np.ndarray, probs: np.ndarray) -> dict:
+    """What ``INCEPTION_REF`` pins: the features' largest magnitude and 16
+    of them at ``np.linspace``, 16 probabilities likewise, each image's
+    largest probability, and the inception score (10 splits)."""
+    f, p = np.asarray(feats, np.float64), np.asarray(probs, np.float64)
+    fi, pi = (np.linspace(0, a.size - 1, 16).astype(int) for a in (f, p))
+    return {"feat_absmax": float(np.abs(f).max()), "feat_at": [float(v) for v in f.reshape(-1)[fi]],
+            "prob_at": [float(v) for v in p.reshape(-1)[pi]], "prob_max": [float(v) for v in p.max(axis=1)],
+            "is": list(inception_score_from_probs(p))}
+
+
+def inception_ref_gaps(got: dict, want: dict) -> dict:
+    """pool_3's largest gap over the features' largest magnitude, the
+    softmax's largest absolute gap, the IS's relative gap."""
+    feat = max(abs(a - b) for a, b in zip([got["feat_absmax"], *got["feat_at"]],
+                                          [want["feat_absmax"], *want["feat_at"]], strict=True))
+    prob = max(abs(a - b) for a, b in zip(got["prob_at"] + got["prob_max"], want["prob_at"] + want["prob_max"],
+                                          strict=True))
+    return {"pool_3": feat / want["feat_absmax"], "softmax": prob, "is": abs(got["is"][0] / want["is"][0] - 1)}
+
+
+def _check_inception_gaps(what: str, gaps: dict) -> None:
+    bounds = {"pool_3": INCEPTION_FEAT_BOUND, "softmax": INCEPTION_PROB_BOUND, "is": INCEPTION_IS_BOUND}
+    bad = {k: v for k, v in gaps.items() if not v <= bounds[k]}
+    if bad:
+        raise AssertionError(f"{what}: beyond the bounds {bounds}: {bad}")
+
+
+def phase_inception_ref(device, pb: Path, info: dict) -> dict:
+    """The full-width gate for the Inception-2015 scorer, which no real
+    weight file in the repository covers: the port's ``Inception2015`` on
+    ``device`` over the synthetic graph ``pb`` (``info``: its counts) on
+    ``inception_ref_images()``, against the JAX package's outputs pinned in
+    ``INCEPTION_REF``.  No kernel is launched."""
+    before = dropout_mask.launches, philox_uniform.launches
+    t0 = time.perf_counter()
+    inc = Inception2015(str(pb), device=device)
+    load_s = time.perf_counter() - t0
+    gaps_ops = inc.exe.unsupported(inc.POOL, (inc.FEED,))
+    if gaps_ops:
+        raise AssertionError(f"inception_ref: ops outside SUPPORTED_OPS on the path: {gaps_ops}")
+    feats, probs = inc.predictions(inception_ref_images())
+    got = inception_ref_summary(feats, probs)
+    gaps = inception_ref_gaps(got, INCEPTION_REF)
+    print(f"inception_ref: synthetic Inception-2015 graph: {info['nodes']} nodes, {info['convs']} convs (94 in the "
+          f"published net), {info['weights']:,} weights, {info['bytes'] / 1e6:.1f} MB; parsed and placed on {device} "
+          f"in {load_s:.2f} s; {N_INCEPTION_REF} images: features [{feats.shape[0]}, {feats.shape[1]}], largest "
+          f"{got['feat_absmax']:.4f}; largest probability per image {min(got['prob_max']):.4f}-"
+          f"{max(got['prob_max']):.4f}; IS {got['is'][0]:.6f}; against the JAX package's pinned outputs "
+          f"{json.dumps(gaps)} (bounds pool_3 {INCEPTION_FEAT_BOUND} of the largest feature, softmax "
+          f"{INCEPTION_PROB_BOUND}, IS {INCEPTION_IS_BOUND} relative); unsupported ops none")
+    if feats.shape != (N_INCEPTION_REF, 2048) or probs.shape != (N_INCEPTION_REF, 1008):
+        raise AssertionError(f"inception_ref: features {feats.shape}, softmax {probs.shape}")
+    _check_inception_gaps("inception_ref", gaps)
+    if (dropout_mask.launches, philox_uniform.launches) != before:
+        raise AssertionError("inception_ref launched a kernel")
+    return dict(gaps=gaps, load_s=load_s, **info)
+
+
+def phase_scorer_fit(device, cfg: app.Config) -> float:
+    """The TrainedScorer the flagship app fits when no Inception-2015 file
+    is found, fitted into ``cfg.out_dir/scorer.npz`` under the app's
+    precision, for the phases that read that file (the resume and the
+    CIFAR-10 conv app): the train phase scored with Inception-2015 instead."""
+    data = cifar10.load_arrays(cfg.DATA_DIR or None, n_examples=cfg.n_examples)
+    t0 = time.perf_counter()
+    with precision_policy("bfloat16" if cfg.BF16 and torch.device(device).type == "cuda" else "float32"):
+        scorer = pick_scorer(3, 32, cfg.out_dir, train_data=data["train"], device=device)
+    if scorer.comparable or not (Path(cfg.out_dir) / "scorer.npz").is_file():
+        raise AssertionError("the TrainedScorer was not fitted into the train phase's out_dir")
+    return time.perf_counter() - t0
+
+
+def phase_inception_score(device, pb: Path, train: dict, n_timed: int = 2000) -> dict:
+    """The train phase ran with ``$CTGAN_INCEPTION_PB`` set to the synthetic
+    graph ``pb``: ``pick_scorer`` must have taken Inception-2015
+    (``comparable``) for its IS on ``inception_samples`` samples and its
+    FID.  Then the scorer's speed on the card (seconds per 1,000 images over
+    ``n_timed``; host and device ms of one batch of 100), and the port on
+    the CPU against the card's features of the first ``N_INCEPTION_REF``."""
+    if not (train["scorer_line"] or "").startswith("IS scorer: Inception-2015 frozen graph") or train["scorer_fit_s"]:
+        raise AssertionError(f"the flagship did not score with Inception-2015: {train['scorer_line']!r}")
+    if not train["evals"]:
+        raise AssertionError("the flagship logged no inception score")
+    before = dropout_mask.launches, philox_uniform.launches
+    inc = Inception2015(str(pb), device=device)
+    flat, _ = synthetic_images(n_timed, 3, 32, seed=7)
+    x = torch.from_numpy(flat).to(device).reshape(-1, 3, 32, 32)
+    inc.predictions(x[:100])  # cuDNN's first calls
+    sync = _sync(device)
+    sync()
+    t0 = time.perf_counter()
+    feats, _ = inc.predictions(x)
+    s_per_1000 = (time.perf_counter() - t0) / (n_timed / 1000)
+    batch = inc._to_nhwc(x[:100])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    t0 = time.perf_counter()
+    inc._forward(batch)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end)
+    if (dropout_mask.launches, philox_uniform.launches) != before:
+        raise AssertionError("the Inception-2015 scorer launched a kernel")
+    cpu_feats, _ = Inception2015(str(pb), device="cpu").predictions(x[:N_INCEPTION_REF].cpu())
+    cpu_gap = float(np.abs(cpu_feats - feats[:N_INCEPTION_REF]).max() / np.abs(cpu_feats).max())
+    r = train["evals"][-1]
+    print(f"inception_score: the flagship train phase scored with Inception-2015 (comparable): IS "
+          f"{r['inception_50k']:.5f} +- {r['inception_50k_std']:.5f}, FID {r['fid_10k']:.5f}; the scorer "
+          f"(fp32, TF32 off) on {device}: {s_per_1000:.4f} s per 1,000 images ({n_timed} timed, batches of 100), "
+          f"one batch of 100 {host_ms:.2f} ms on the host, {device_ms:.2f} ms on the device; CPU against card on "
+          f"the first {N_INCEPTION_REF} features: {cpu_gap:.3g} of the largest (bound {INCEPTION_FEAT_BOUND}); "
+          f"0 launches")
+    if not cpu_gap <= INCEPTION_FEAT_BOUND:
+        raise AssertionError(f"inception_score: CPU and card features differ by {cpu_gap}")
+    return dict(s_per_1000=s_per_1000, batch_host_ms=host_ms, batch_device_ms=device_ms, cpu_gap=cpu_gap)
+
+
+def _rewrite_aot_record(src: str, dst: str, **env) -> None:
+    """The artifact ``src`` written again to ``dst`` with its recorded
+    environment changed."""
+    record = read_aot_record(src)
+    record["env"].update(env)
+    torch.export.save(torch.export.load(src), dst, extra_files={AOT_RECORD: json.dumps(record)})
+
+
+def aot_equal(device, out_dir: str, ckpt: Path, bf16: bool, n: int = 100) -> float:
+    """``generate --n n --aot`` (an artifact exported at batch ``n``, the
+    ``--batch`` of ``--n 100``) against the eager ``generate --n n`` on
+    ``ckpt``, cuDNN deterministic: the largest difference; then the artifact
+    with another recorded device name must raise ``AotMismatch``."""
+    tag = "bf16" if bf16 else "fp32"
+    art = f"{out_dir}/flagship_b{n}_{tag}.pt2"
+    base = dict(ckpt=str(ckpt), n=n, batch=n, bf16=bf16)
+    generate.main(cfg=generate.Config(**base, aot_save=art), device=device)
+    with _cudnn_deterministic():
+        eager = generate.main(cfg=generate.Config(**base, out_prefix=f"{out_dir}/eager_{tag}"), device=device)
+        served = generate.main(cfg=generate.Config(**base, aot=art, out_prefix=f"{out_dir}/aot_{tag}"), device=device)
+    _rewrite_aot_record(art, f"{out_dir}/moved.pt2", device_name="NVIDIA A100-SXM4-80GB")
+    try:
+        load_aot(f"{out_dir}/moved.pt2", device=device)
+    except AotMismatch as err:
+        if "device_name" not in str(err):
+            raise
+    else:
+        raise AssertionError("an artifact recorded for another device loaded without AotMismatch")
+    return float(np.abs(served - eager).max())
+
+
+def _serve_process(art: str, bf16: bool) -> subprocess.Popen:
+    """A fresh ``python -m ctgan_tpu_torch generate --aot art --serve_iters``
+    process on the JAX run's checkpoint."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "ctgan_tpu_torch", "generate", "--ckpt", str(AOT_CKPT), "--batch", str(AOT_BATCH),
+         "--aot", art, "--serve_iters", str(AOT_SERVE_ITERS), "--bf16", str(bf16).lower()],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def _served(proc: subprocess.Popen, t0: float) -> tuple[dict, float]:
+    """The serve record a ``_serve_process`` printed last, and its seconds."""
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(proc.args)} exited {proc.returncode}: {stderr[-2000:]}")
+    return json.loads(stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def phase_aot_serve(device, out_dir: str, eager_serve: dict) -> dict:
+    """``generate --batch 1024 --aot_save`` on the JAX run's checkpoint in
+    fp32 and ``--bf16``; each artifact loaded by ``--aot --serve_iters 20``
+    in a fresh ``python -m ctgan_tpu_torch generate`` process, beside this
+    run's eager figure (``eager_serve``), one process at a time; while the
+    fp32 one starts up, ``aot_equal`` in both precisions (the card is idle
+    then: the process imports, and reaches the card seconds later), and
+    while the bf16 one does, ``phase_cli``."""
+    before = dropout_mask.launches, philox_uniform.launches
+    arts, saved = {}, {}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "fp32"
+        arts[tag] = f"{out_dir}/flagship_b{AOT_BATCH}_{tag}.pt2"
+        saved[tag] = generate.main(cfg=generate.Config(ckpt=str(AOT_CKPT), batch=AOT_BATCH, bf16=bf16,
+                                                       aot_save=arts[tag]), device=device)
+    t0 = time.perf_counter()
+    proc = _serve_process(arts["fp32"], False)
+    diffs = {tag: aot_equal(device, out_dir, AOT_CKPT, tag == "bf16") for tag in ("fp32", "bf16")}
+    served = {"fp32": _served(proc, t0)}
+    t0 = time.perf_counter()
+    proc = _serve_process(arts["bf16"], True)
+    cli = phase_cli()
+    served["bf16"] = _served(proc, t0)
+    out = {"cli": cli}
+    for tag, (rec, process_s) in served.items():
+        eager = eager_serve[tag]["value"]
+        out[tag] = dict(export_s=saved[tag]["compile_sec"], load_sec=rec["request_compile_sec"],
+                        aot_images_per_s=rec["value"], eager_images_per_s=eager, latency_s=rec["request_latency_sec"],
+                        process_s=process_s, max_diff=diffs[tag], bytes=os.path.getsize(arts[tag]))
+        print(f"aot_serve {tag}: --aot_save at batch {AOT_BATCH}: export {saved[tag]['compile_sec']} s, "
+              f"{os.path.getsize(arts[tag]) / 2**20:.1f} MiB; fresh process ({process_s:.1f} s): load_sec "
+              f"{rec['request_compile_sec']}, {rec['value']:.1f} images/s over {AOT_SERVE_ITERS} queued requests "
+              f"(eager, this run: {eager:.1f}), latency {rec['request_latency_sec']} s; --n 100 --aot against "
+              f"eager: max diff {diffs[tag]:.3g}; AotMismatch on another device name")
+        if diffs[tag] != 0.0:
+            raise AssertionError(f"aot_serve {tag}: --aot samples differ from eager by {diffs[tag]}")
+    if (dropout_mask.launches, philox_uniform.launches) != before:
+        raise AssertionError("aot_serve launched a kernel; G has no dropout")
+    return out
+
+
+def phase_onehot_toys(device, out_dir: str, iters: int = TOY_ITERS, flags: tuple = ()) -> dict:
+    """Both toys through ``python -m ctgan_tpu_torch onehot-toys`` on
+    ``device`` (with the app's ``flags`` besides ``--which`` and
+    ``--ITERS``), side by side in two processes: s/iter from the logger's
+    wall clock between its first and last print, finite costs."""
+    device = torch.device(device)
+    procs = {which: subprocess.Popen(
+        [sys.executable, "-m", "ctgan_tpu_torch", "--platform", device.type, "onehot-toys", "--which", which,
+         "--ITERS", str(iters), "--out_dir", f"{out_dir}/{which}", *flags],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT) for which in ("wgan", "ae")}
+    out = {}
+    for which, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"onehot-toys {which} exited {proc.returncode}: {stderr[-2000:]}")
+        rows = [json.loads(line) for line in Path(f"{out_dir}/{which}/log.ndjson").read_text().splitlines()]
+        costs = {k: v for k, v in rows[-1].items() if k.endswith("_cost")}
+        if [r["iteration"] for r in rows] != list(range(100, iters + 1, 100)) or not costs or not all(
+                math.isfinite(r[k]) for r in rows for k in costs):
+            raise AssertionError(f"onehot-toys {which}: logged {rows}")
+        s_per_iter = (rows[-1]["wall_time"] - rows[0]["wall_time"]) / (rows[-1]["iteration"] - rows[0]["iteration"])
+        out[which] = dict(s_per_iter=s_per_iter, **costs)
+        print(f"onehot_toys {which} on {device}: {iters} iterations, {s_per_iter * 1e3:.3f} ms/iter over "
+              f"iterations {rows[0]['iteration']}-{rows[-1]['iteration']} (both toys side by side), last costs "
+              f"{json.dumps(costs)}")
+    return out
+
+
+def phase_cli() -> dict:
+    """``python -m ctgan_tpu_torch list`` lists every app and exits 0; an
+    unknown app exits 2."""
+    run = lambda *args: subprocess.run([sys.executable, "-m", "ctgan_tpu_torch", *args], capture_output=True,
+                                       text=True, timeout=120, cwd=ROOT)
+    listed, unknown = run("list"), run("no-such-app")
+    missing = [name for name in CLI_APPS if f"  {name} " not in listed.stdout]
+    if listed.returncode or missing:
+        raise AssertionError(f"list exited {listed.returncode}, missing {missing}")
+    if unknown.returncode != 2 or "unknown app" not in unknown.stderr:
+        raise AssertionError(f"an unknown app exited {unknown.returncode}: {unknown.stderr[-500:]}")
+    print(f"cli: list exits 0 with the {len(CLI_APPS)} apps; an unknown app exits 2")
+    return {"list": listed.returncode, "unknown": unknown.returncode, "apps": len(CLI_APPS)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2572,8 +2889,18 @@ def main() -> int:
         cfg = app.Config(ITERS=TRAIN_ITERS, save_every=5, sample_every=5, INCEPTION_FREQUENCY=10,
                          inception_samples=5000, out_dir=f"{out_dir}/bf16")
         print(f"train: cut for time: ITERS {TRAIN_ITERS} (of 100000), inception_samples 5000 "
-              f"(of 50000); scorer fitted for 3 epochs on the card; BF16 {cfg.BF16} (the default)")
-        train = _phase("train", phase_train, device, cfg)
+              f"(of 50000), IS and FID with Inception-2015 on a synthetic full-width graph; BF16 {cfg.BF16} "
+              f"(the default)")
+        pb = Path(out_dir) / "classify_image_graph_def.pb"
+        graph = inception_graph_module().write_inception_graph(pb)
+        inception_ref = _phase("inception_ref", phase_inception_ref, device, pb, graph)
+        os.environ["CTGAN_INCEPTION_PB"] = str(pb)  # this phase alone
+        try:
+            train = _phase("train", phase_train, device, cfg)
+        finally:
+            del os.environ["CTGAN_INCEPTION_PB"]
+        inception = _phase("inception_score", phase_inception_score, device, pb, train)
+        scorer_fit_s = _phase("scorer_fit", phase_scorer_fit, device, cfg)
         resume = _phase("train_resume", phase_resume, device, cfg)
         fp32_cfg = dataclasses.replace(cfg, BF16=False, out_dir=f"{out_dir}/fp32")
         train_fp32 = _phase("train_fp32", phase_train, device, fp32_cfg)
@@ -2603,6 +2930,10 @@ def main() -> int:
         ssl_runs = run_ssl_apps(device, out_dir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lsun128_") as out_dir:
         lsun_runs = run_lsun128_apps(device, out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as out_dir:
+        aot_serve = _phase("aot_serve", phase_aot_serve, device, out_dir, jax_ckpt["serve"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_toys_") as out_dir:
+        toys = _phase("onehot_toys", phase_onehot_toys, device, out_dir)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
             "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
             "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"], **lsun_runs["runs"]}
@@ -2645,6 +2976,14 @@ def main() -> int:
     for name, run in lsun_runs["runs"].items():
         print(_gan_line(name, run))
     print(f"serve lsun128: {json.dumps(lsun_runs['serve'])}")
+    print(f"inception_ref: {json.dumps(inception_ref)}")
+    print(f"inception_score: {inception['s_per_1000']:.4f} s per 1,000 images; a batch of 100 "
+          f"{inception['batch_host_ms']:.2f} ms host, {inception['batch_device_ms']:.2f} ms device; CPU gap "
+          f"{inception['cpu_gap']:.3g}; the TrainedScorer for the later phases fitted in {scorer_fit_s:.2f} s")
+    print(f"aot_serve: {json.dumps(aot_serve)}")
+    print(f"onehot_toys: {json.dumps(toys)}")
+    print("inception_ref, the Inception-2015 scorer, aot_serve and the toys launch no dropout_mask and no "
+          "philox_uniform (checked per phase; the toys have no dropout)")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
         print(f"{name} launches on the main path: "
               + " + ".join(f"{k} {r[key]}" for k, r in runs.items()) + f" = {launches[name]}")

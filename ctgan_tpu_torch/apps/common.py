@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..core import print_model_settings
-from ..eval import TrainedScorer
+from ..eval import Inception2015, TrainedScorer, find_inception_file
 from ..utils.images import save_images
 
 __all__ = [
@@ -22,16 +22,6 @@ __all__ = [
     "pick_scorer",
     "require_device", "run_gan_loop", "save_sample_grid", "setup_out_dir",
 ]
-
-# where the JAX package looks for the Inception-2015 frozen graph, in its
-# order (ctgan_tpu/eval/inception2015.py:34-39); the last two are relative
-# to the working directory
-_INCEPTION_LOCATIONS = (
-    "/tmp/imagenet/classify_image_graph_def.pb",
-    "/tmp/imagenet/inception-2015-12-05.tgz",
-    "weights/classify_image_graph_def.pb",
-    "weights/inception-2015-12-05.tgz",
-)
 
 
 def parse_config(cls, argv=None):
@@ -69,31 +59,46 @@ def save_sample_grid(samples_flat, shape_chw, path, value_range=(-1.0, 1.0)) -> 
     save_images(imgs, path)
 
 
-def find_inception_file() -> str | None:
-    """The Inception-2015 weight file that the JAX package would use:
-    ``$CTGAN_INCEPTION_PB``, else the first of its four default locations
-    that exists."""
-    cands = [os.environ.get("CTGAN_INCEPTION_PB"), *_INCEPTION_LOCATIONS]
-    return next((c for c in cands if c and os.path.exists(c)), None)
+class _FlatInception:
+    """:class:`Inception2015` over the apps' flat ``[N, C*H*W]`` C-major
+    0..255-valued samples (arrays or tensors), 1-channel images repeated to
+    3 (``ctgan_tpu/apps/common.py:23-45``)."""
+
+    comparable = True  # comparable with the reference's inception scores
+
+    def __init__(self, inc: Inception2015, channels: int, size: int):
+        self._inc = inc
+        self._shape = (channels, size, size)
+
+    def _unflatten(self, images) -> torch.Tensor:
+        x = images if isinstance(images, torch.Tensor) else torch.from_numpy(np.asarray(images))
+        x = x.to(self._inc.device, torch.float32).reshape(-1, *self._shape)
+        return x.repeat(1, 3, 1, 1) if self._shape[0] == 1 else x
+
+    def inception_score(self, images, splits: int = 10):
+        return self._inc.inception_score(self._unflatten(images), splits=splits)
+
+    def fid(self, real_images, fake_images):
+        return self._inc.fid(self._unflatten(real_images), self._unflatten(fake_images))
 
 
 def pick_scorer(channels: int, size: int, out_dir: str, train_data=None, device="cuda"):
-    """The IS/FID scorer: the TrainedScorer cached at
-    ``<out_dir>/scorer.npz``, fitted on ``train_data`` (3 epochs) when the
-    cache is missing.  Where the JAX package would find an Inception-2015
-    weight file and score with that network, this raises: the port has no
-    Inception-2015 scorer yet, and scoring with another net would give
-    numbers that look comparable and are not."""
+    """The IS/FID scorer on ``device``, as the JAX package picks it: the
+    Inception-2015 scorer (``comparable`` True) when a weight file is found
+    (``$CTGAN_INCEPTION_PB``, ``/tmp/imagenet/`` or ``weights/``, see
+    ``eval.inception2015``), else the TrainedScorer cached at
+    ``<out_dir>/scorer.npz`` (``comparable`` False), fitted on
+    ``train_data`` (3 epochs) when the cache is missing.  A weight file that
+    does not load raises: nothing falls back to the TrainedScorer."""
     path = find_inception_file()
     if path is not None:
-        raise NotImplementedError(
-            f"an Inception-2015 weight file is present ({path}), but the Inception-2015 scorer "
-            "is not ported yet (ROADMAP Queue 1 item 11b); unset "
-            "$CTGAN_INCEPTION_PB or move the file to score with the TrainedScorer")
+        print(f"IS scorer: Inception-2015 frozen graph from {path} "
+              "(scores comparable to the reference)")
+        return _FlatInception(Inception2015(path, device=device), channels, size)
     scorer = TrainedScorer(channels, size, cache_path=f"{out_dir}/scorer.npz", device=device)
     if scorer.params is None and train_data is not None:
         print("IS scorer: training self-contained classifier scorer "
-              "(not comparable with Inception-2015 scores)")
+              "(supply $CTGAN_INCEPTION_PB for reference-comparable scores)")
         t0 = time.perf_counter()
         acc = scorer.fit(train_data[0], train_data[1], epochs=3)
         print(f"IS scorer: fitted in {time.perf_counter() - t0:.3f} s, last batch accuracy {acc:.3f}")

@@ -48,7 +48,8 @@ metrics printed on the first 5 iterations and every 100th; every
 ``sample_every`` iterations a grid of 64 samples of fixed noise
 (``samples_<it>.png``); every ``inception_every`` iterations the inception
 score over ``inception_samples`` images generated in batches of 100 and FID
-against as many pool images, through the TrainedScorer cached in
+against as many pool images, through ``common.pick_scorer``'s scorer:
+Inception-2015 when a weight file is found, else the TrainedScorer cached in
 ``<out_dir>/scorer.npz`` (fitted on the pool when missing); every
 ``save_every`` iterations a checkpoint ``ckpt/ckpt_<N>.npz`` in the JAX
 package's format, with the sampler's position as ``data_state``, and
@@ -270,7 +271,7 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     scorer = None
     if cfg.inception_every:
         scorer = pick_scorer(3, 64, out_dir, train_data=app.pool, device=device)
-        if scorer.params is None:
+        if not scorer.comparable and scorer.params is None:
             print("IS cadence disabled: no inception file and no labeled data")
             scorer = None
     try:

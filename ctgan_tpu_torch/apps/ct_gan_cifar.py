@@ -27,7 +27,8 @@ and a grid of 128 fixed samples, ``samples_<it>.png`` (the JAX app writes
 a JPEG under the same stem; the port writes PNG only); every
 ``inception_every`` iterations ``inception score`` over
 ``inception_samples`` images made in batches of 100 from the noise of seed
-``1000 + i``, through the TrainedScorer cached in ``<out_dir>/scorer.npz``
+``1000 + i``, through ``common.pick_scorer``'s scorer: Inception-2015 when a
+weight file is found, else the TrainedScorer cached in ``<out_dir>/scorer.npz``
 (fitted on the whole training split when missing); checkpoints and resume
 as in the MNIST app.
 
@@ -147,7 +148,8 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     if cfg.inception_every:
         full = load_arrays(cfg.DATA_DIR or None)
         scorer = pick_scorer(3, 32, out_dir, train_data=full["train"], device=device)
-        print("scorer test acc:", scorer.sanity_check(full["test"][0][:2000], full["test"][1][:2000]))
+        if not scorer.comparable:
+            print("scorer test acc:", scorer.sanity_check(full["test"][0][:2000], full["test"][1][:2000]))
     return run_gan_loop(cfg, app.state, make_step_fn(app, to_real), gan_batches(app), app.rand,
                         make_test_fn(cfg, app, scorer, out_dir), out_dir, device)
 

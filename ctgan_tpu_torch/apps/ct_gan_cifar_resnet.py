@@ -30,7 +30,8 @@ previous print, ``time`` in seconds per iteration) into ``log.ndjson`` and
 ``BATCH_SIZE * 10`` test images and a grid of 100 fixed samples
 (``samples_<it>.png``); every ``INCEPTION_FREQUENCY`` iterations the
 inception score over ``inception_samples`` generated images and FID on
-10,000, through the TrainedScorer cached in ``<out_dir>/scorer.npz``;
+10,000, through ``common.pick_scorer``'s scorer: Inception-2015 when a
+weight file is found, else the TrainedScorer cached in ``<out_dir>/scorer.npz``;
 every ``save_every`` iterations a checkpoint ``ckpt/ckpt_<N>.npz`` in the
 JAX package's format (the newest 5 kept) and ``params_latest.npz``.  Run it
 again with the same ``out_dir`` and it resumes, also from a checkpoint the

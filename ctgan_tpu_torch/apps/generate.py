@@ -27,8 +27,18 @@ batch size is part of the result.  The first 100 go to
 (fresh weights when no ``--ckpt`` is given: the same compute) and prints
 one JSON line with the JAX app's keys.
 
-Not ported yet, and refused: ``--aot``/``--aot_save`` (ROADMAP Queue 1
-item 12b).
+Ahead-of-time serving (``utils/aot.py``): ``--aot_save art.pt2`` exports
+G's forward at ``--batch`` with ``torch.export`` and writes it as a
+weight-independent artifact (its inputs are G's params, the noise and, for
+``cifar_resnet``, the labels); ``--aot art.pt2`` loads it in another
+process, with no model Python and no tracing, and serves any checkpoint of
+that model, every request at the artifact's batch (a ragged tail padded,
+then sliced), its draws made as the eager path makes them, so the samples
+of a full batch are the eager samples.  An artifact for another model,
+width, batch or precision is refused.
+
+    python -m ctgan_tpu_torch.apps.generate --batch 1024 --aot_save flagship_b1024.pt2
+    python -m ctgan_tpu_torch.apps.generate --ckpt ... --batch 1024 --aot flagship_b1024.pt2 --serve_iters 50
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import torch
 from ..bridge import from_jax_params
 from ..core import Randomness, precision_policy, split_params
 from ..models import dcgan, good64, lsun128, resnet_cifar
+from ..utils.aot import load_aot, save_aot
 from ..utils.checkpoint import load_checkpoint
 from .common import parse_config, require_device, save_sample_grid
 
@@ -61,8 +72,9 @@ class Config:
     dim: int = 128
     serve_iters: int = 0
     bf16: bool = False
-    aot_save: str = ""
-    aot: str = ""
+    aot_save: str = ""  # export G at --batch and write the artifact here
+    aot: str = ""  # serve from this artifact
+    aot_strict: bool = True  # refuse an artifact of another torch version or device (utils/aot.py)
 
 
 LSUN128 = lsun128.Lsun128Config()  # the JAX app serves the default widths
@@ -74,9 +86,6 @@ _SHAPES = {"cifar_resnet": (3, 32, 32), "good64": (3, 64, 64), "mnist": (1, 28, 
 def _check_supported(cfg: Config) -> None:
     if cfg.model not in _SHAPES:
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.aot or cfg.aot_save:
-        raise NotImplementedError("--aot/--aot_save are not ported yet: ROADMAP Queue 1 item 12b "
-                                  "(serving ahead-of-time, CUDA graphs or torch.export)")
 
 
 def load_gen_params(ckpt_path: str) -> dict[str, np.ndarray]:
@@ -118,51 +127,113 @@ def _gen_params(cfg: Config, device) -> dict[str, torch.Tensor]:
     return {k: v.to(device) for k, v in from_jax_params(params).items()}
 
 
+def _forward(cfg: Config):
+    """``forward(params, noise, labels=None) -> [n, C*H*W]`` images (bf16
+    under ``--bf16``): G on its draws, the function ``--aot_save`` exports."""
+    mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
+
+    def forward(params: dict, noise: torch.Tensor, labels: torch.Tensor | None = None) -> torch.Tensor:
+        n = noise.shape[0]
+        with precision_policy("bfloat16" if cfg.bf16 else "float32"):
+            if cfg.model == "good64":
+                return good64.generator(params, n, None, dim=_width_64(cfg), noise=noise)
+            if cfg.model == "mnist":
+                return dcgan.mnist_generator(params, n, None, dim=_width_64(cfg), noise=noise)
+            if cfg.model == "cifar":
+                return dcgan.cifar_generator(params, n, None, dim=cfg.dim, noise=noise)
+            if cfg.model == "lsun128":
+                return lsun128.generator(params, n, None, cfg=LSUN128, noise=noise)
+            return resnet_cifar.generator(params, n, labels, mcfg, None, noise=noise)
+
+    return forward
+
+
+def _draws(cfg: Config, n: int, seed: int, device) -> tuple[torch.Tensor, ...]:
+    """A request's draws from ``seed``: ``(noise,)``, or for
+    ``cifar_resnet`` ``(noise, labels)``, the labels drawn first."""
+    rand = Randomness(seed, device)
+    if cfg.model == "cifar_resnet":
+        labels = rand.labels(n, resnet_cifar.ResnetCifarConfig().n_labels)
+        return rand.noise(n, resnet_cifar.NOISE_DIM), labels
+    return (rand.noise(n, resnet_cifar.NOISE_DIM),)
+
+
 def _sampler(cfg: Config, params: dict, device):
     """``call(n, seed) -> [n, C*H*W]`` images (bf16 under ``--bf16``),
     noise (and labels) drawn from ``seed``."""
-    mcfg = resnet_cifar.ResnetCifarConfig(dim_g=cfg.dim, dim_d=cfg.dim)
-
-    def body(n: int, rand: Randomness) -> torch.Tensor:
-        if cfg.model == "good64":
-            return good64.generator(params, n, rand, dim=_width_64(cfg))
-        if cfg.model == "mnist":
-            return dcgan.mnist_generator(params, n, rand, dim=_width_64(cfg))
-        if cfg.model == "cifar":
-            return dcgan.cifar_generator(params, n, rand, dim=cfg.dim)
-        if cfg.model == "lsun128":
-            return lsun128.generator(params, n, rand, cfg=LSUN128)
-        return resnet_cifar.generator(params, n, rand.labels(n, mcfg.n_labels), mcfg, rand)
+    forward = _forward(cfg)
 
     @torch.no_grad()
     def call(n: int, seed: int) -> torch.Tensor:
-        with precision_policy("bfloat16" if cfg.bf16 else "float32"):
-            return body(n, Randomness(seed, device))
+        return forward(params, *_draws(cfg, n, seed, device))
 
     return call
 
 
-def _serve_bench(cfg: Config, call, device) -> dict:
-    """``serve_iters`` requests of ``batch`` images queued back to back and
-    timed with CUDA events (device time per batch), after two warm-up
-    requests; then one request timed on the host clock, synchronised."""
+class _Program(torch.nn.Module):
+    """G's forward as the module ``torch.export`` takes."""
+
+    def __init__(self, forward):
+        super().__init__()
+        self.fn = forward
+
+    def forward(self, params: dict, noise: torch.Tensor, labels: torch.Tensor | None = None) -> torch.Tensor:
+        return self.fn(params, noise, labels)
+
+
+def _aot_save(cfg: Config, params: dict, device) -> dict:
+    """Export G at ``--batch`` and write the artifact; ``compile_sec`` is
+    the export's seconds."""
+    t0 = time.perf_counter()
+    program = torch.export.export(_Program(_forward(cfg)), (params, *_draws(cfg, cfg.batch, cfg.seed, device)))
+    compile_s = time.perf_counter() - t0
+    meta = save_aot(cfg.aot_save, program, device,
+                    meta={"model": cfg.model, "batch": cfg.batch, "bf16": cfg.bf16, "dim": cfg.dim})
+    result = {"aot_path": cfg.aot_save, "compile_sec": round(compile_s, 1), **meta}
+    print(json.dumps(result))
+    return result
+
+
+def _aot_sampler(cfg: Config, params: dict, device):
+    """``(call(seed) -> [batch, C*H*W], meta)`` from the artifact
+    ``--aot``; an artifact for another model, width, batch or precision
+    than ``cfg`` asks for is refused."""
+    program, meta = load_aot(cfg.aot, strict=cfg.aot_strict, device=device)
+    wrong = [f"{k} {meta.get(k)!r} (asked for {getattr(cfg, k)!r})"
+             for k in ("model", "dim", "batch", "bf16") if meta.get(k) != getattr(cfg, k)]
+    if wrong:
+        raise SystemExit(f"--aot {cfg.aot} was exported for another configuration: " + ", ".join(wrong)
+                         + "; export one with --aot_save for this one")
+
+    @torch.no_grad()
+    def call(seed: int) -> torch.Tensor:
+        return program(params, *_draws(cfg, cfg.batch, seed, device))
+
+    return call, meta
+
+
+def _serve_bench(cfg: Config, request, device, *, aot_meta: dict | None = None) -> dict:
+    """``serve_iters`` requests of ``batch`` images (``request(seed)``)
+    queued back to back and timed with CUDA events (device time per batch),
+    after two warm-up requests; then one request timed on the host clock,
+    synchronised.  ``aot_meta``: the requests run a loaded artifact."""
     if device.type != "cuda":
         raise RuntimeError("--serve_iters measures the card: it needs a CUDA device")
     k = max(cfg.serve_iters, 10)
     t_c = time.perf_counter()
     for i in range(2):
-        call(cfg.batch, cfg.seed + i)
+        request(cfg.seed + i)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t_c
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(k):
-        call(cfg.batch, cfg.seed + 10 + i)
+        request(cfg.seed + 10 + i)
     end.record()
     end.synchronize()
     sec_per_batch = start.elapsed_time(end) / 1e3 / k
     t0 = time.perf_counter()
-    call(cfg.batch, cfg.seed + 7)
+    request(cfg.seed + 7)
     torch.cuda.synchronize()
     latency_s = time.perf_counter() - t0
     result = {
@@ -173,9 +244,11 @@ def _serve_bench(cfg: Config, call, device) -> dict:
         "batch": cfg.batch,
         "sec_per_batch": round(sec_per_batch, 6),
         "request_latency_sec": round(latency_s, 4),
-        "timing": f"cuda events over {k} queued requests",
-        "compile_sec": 0.0,  # eager: nothing is compiled
-        "request_compile_sec": round(warm_s, 1),  # the two warm-up requests
+        "timing": f"cuda events over {k} queued requests" + (", aot program" if aot_meta else ""),
+        "compile_sec": 0.0,  # nothing is compiled in this process
+        # the artifact's load, or the two eager warm-up requests
+        "request_compile_sec": aot_meta["load_sec"] if aot_meta else round(warm_s, 1),
+        **({"aot": cfg.aot} if aot_meta else {}),
         "params": "checkpoint" if cfg.ckpt else "fresh-init (identical compute)",
         "bf16": cfg.bf16,
         "device": torch.cuda.get_device_name(device),
@@ -187,17 +260,32 @@ def _serve_bench(cfg: Config, call, device) -> dict:
 
 def main(argv=None, cfg: Config | None = None, device="cuda"):
     """Samples (``[n, C*H*W]`` NumPy, in the model's value range) or, with
-    ``--serve_iters``, the serving measurement."""
+    ``--serve_iters``, the serving measurement, or with ``--aot_save`` the
+    export's record."""
     cfg = cfg or parse_config(Config, argv)
     _check_supported(cfg)
     device = require_device(device)
+    if cfg.aot_save:
+        return _aot_save(cfg, _gen_params(cfg, device), device)
     if cfg.serve_iters > 0:
-        return _serve_bench(cfg, _sampler(cfg, _gen_params(cfg, device), device), device)
+        params = _gen_params(cfg, device)
+        if cfg.aot:
+            call, meta = _aot_sampler(cfg, params, device)
+            return _serve_bench(cfg, call, device, aot_meta=meta)
+        eager = _sampler(cfg, params, device)
+        return _serve_bench(cfg, lambda seed: eager(cfg.batch, seed), device)
     if not cfg.ckpt:
         raise SystemExit("--ckpt required")
-    call = _sampler(cfg, _gen_params(cfg, device), device)
-    outs = [call(min(cfg.batch, cfg.n - i), cfg.seed * 1_000_003 + i).float().cpu()
-            for i in range(0, cfg.n, cfg.batch)]
+    params = _gen_params(cfg, device)
+    seeds = [(i, cfg.seed * 1_000_003 + i) for i in range(0, cfg.n, cfg.batch)]
+    if cfg.aot:
+        # every request at the artifact's batch; a ragged tail is padded, then sliced
+        call, meta = _aot_sampler(cfg, params, device)
+        print(f"aot: loaded {cfg.aot} in {meta['load_sec']}s")
+        outs = [call(seed)[: cfg.n - i].float().cpu() for i, seed in seeds]
+    else:
+        eager = _sampler(cfg, params, device)
+        outs = [eager(min(cfg.batch, cfg.n - i), seed).float().cpu() for i, seed in seeds]
     samples = torch.cat(outs)[: cfg.n].numpy()
     grid_path = f"{cfg.out_prefix}.png"
     save_sample_grid(samples[: min(cfg.n, 100)], _SHAPES[cfg.model], grid_path, value_range=_value_range(cfg))

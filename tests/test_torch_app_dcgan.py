@@ -192,12 +192,13 @@ def test_generate_serves_the_apps_checkpoints(tmp_path, small_data, model):
 
 def test_generate_widths_and_what_it_refuses():
     """``--dim`` 128 (the default) means 64 for ``mnist``, as in the JAX
-    app, and 128 for ``cifar``; ``--aot`` stays refused, also for
-    ``lsun128``, which is served (tests/test_torch_lsun128_app.py)."""
+    app, and 128 for ``cifar``; ``--aot`` serves a checkpoint, so it is
+    refused without one, also for ``lsun128``, which is served
+    (tests/test_torch_lsun128_app.py; ``--aot``: tests/test_torch_aot.py)."""
     assert generate._width_64(generate.Config(model="mnist")) == 64
     assert generate._value_range(generate.Config(model="mnist")) == (0.0, 1.0)
     assert generate._value_range(generate.Config(model="cifar")) == (-1.0, 1.0)
-    with pytest.raises(NotImplementedError, match="item"):
+    with pytest.raises(SystemExit, match="--ckpt"):
         generate.main(cfg=generate.Config(model="lsun128", aot="x"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(SystemExit, match="--ckpt"):
         generate.main(cfg=generate.Config(model="mnist", aot="x"), device="cpu")

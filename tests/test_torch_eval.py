@@ -10,6 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
+from ctgan_tpu.apps import common as jax_common
 from ctgan_tpu.core import init_context, split_params
 from ctgan_tpu.eval import inception2015
 from ctgan_tpu.eval import metrics as jax_metrics
@@ -22,6 +23,7 @@ from ctgan_tpu_torch.apps.common import find_inception_file, pick_scorer
 from ctgan_tpu_torch.bridge import to_jax_params
 from ctgan_tpu_torch.data.synthetic import synthetic_images
 from ctgan_tpu_torch.eval import TrainedScorer, fid_from_features, inception_score_from_probs
+from ctgan_tpu_torch.eval import inception2015 as port_inception2015
 from ctgan_tpu_torch.eval import init_scorer_params
 from ctgan_tpu_torch.train.optim import adam_mismatches
 from ctgan_tpu_torch.utils import load_checkpoint
@@ -138,13 +140,19 @@ def test_pick_scorer_fits_once_and_caches(tmp_path):
 
 
 def test_pick_scorer_refuses_when_inception_2015_is_present(tmp_path, monkeypatch):
-    """Where the JAX package would score with Inception-2015, the port
-    raises rather than score with another net."""
+    """Where the JAX package finds an Inception-2015 weight file, the port
+    scores with Inception-2015 too: a file that is not a GraphDef raises
+    the JAX package's error, and nothing falls back to the TrainedScorer
+    (routing with a real graph: tests/test_torch_inception2015.py)."""
     pb = tmp_path / "classify_image_graph_def.pb"
     pb.write_bytes(b"graph")
     monkeypatch.setenv("CTGAN_INCEPTION_PB", str(pb))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="wire type") as jax_err:
+        jax_common.pick_scorer(3, 32, str(tmp_path))
+    with pytest.raises(ValueError, match="wire type") as port_err:
         pick_scorer(3, 32, str(tmp_path), device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+    assert not (tmp_path / "scorer.npz").exists()
 
 
 def test_apply_needs_params():
@@ -154,18 +162,23 @@ def test_apply_needs_params():
 
 def test_find_inception_file_searches_the_jax_locations():
     """The same four default locations as the JAX package, in its order."""
-    assert common._INCEPTION_LOCATIONS == inception2015._DEFAULT_LOCATIONS
+    assert port_inception2015._DEFAULT_LOCATIONS == inception2015._DEFAULT_LOCATIONS
+    assert common.find_inception_file is port_inception2015.find_inception_file
 
 
 @pytest.mark.parametrize("name", ["classify_image_graph_def.pb", "inception-2015-12-05.tgz"])
 def test_pick_scorer_refuses_a_weights_file_in_the_working_directory(name, tmp_path, monkeypatch):
     """With ``weights/<file>`` under the working directory the JAX package
-    scores with Inception-2015, so the port finds the file and raises."""
+    scores with Inception-2015, so the port finds the same file and loads
+    it: one that is not a graph raises the JAX package's error type."""
     monkeypatch.delenv("CTGAN_INCEPTION_PB", raising=False)
     monkeypatch.chdir(tmp_path)
     (tmp_path / "weights").mkdir()
     (tmp_path / "weights" / name).write_bytes(b"graph")
     found = find_inception_file()
     assert found is not None and found == inception2015.find_inception_file()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(Exception) as jax_err:
+        jax_common.pick_scorer(3, 32, str(tmp_path))
+    with pytest.raises(type(jax_err.value)):
         pick_scorer(3, 32, str(tmp_path), device="cpu")
+    assert not (tmp_path / "scorer.npz").exists()

@@ -30,6 +30,7 @@ from ctgan_tpu_torch.models import resnet_cifar as port_resnet
 from ctgan_tpu_torch.train import AcganConfig, AcganTrainer
 from ctgan_tpu_torch.utils import load_checkpoint, save_checkpoint
 from ctgan_tpu_torch.utils.images import img_stretch, img_tile, make_grid, png_bytes, save_images
+from ctgan_tpu_torch.utils.aot import AotMismatch
 
 from test_real_format_data import write_cifar_fixture
 from torch_parity import JaxDraws, jax_init_params, jax_model_cfg, port_model_cfg, to_port
@@ -157,12 +158,12 @@ def test_load_gen_params_reads_both_packages(tmp_path, jax_blob):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(model="mnist", aot="x.bin"), NotImplementedError, "ROADMAP"),  # mnist is served
-    (dict(model="good64", aot="x.bin"), NotImplementedError, "ROADMAP"),  # good64 is served
-    (dict(model="lsun128", aot="x.bin"), NotImplementedError, "ROADMAP"),  # lsun128 is served
-    (dict(model="cifar", aot_save="x.bin"), NotImplementedError, "ROADMAP"),  # cifar is served
-    (dict(aot="x.bin"), NotImplementedError, "ROADMAP"),
-    (dict(aot_save="x.bin"), NotImplementedError, "ROADMAP"),
+    (dict(model="mnist", aot="x.bin"), SystemExit, "--ckpt"),  # --aot serves a checkpoint
+    (dict(model="good64", aot="x.bin", serve_iters=3, dim=8, batch=4), AotMismatch, "not a"),  # no artifact
+    (dict(model="lsun128", aot="x.bin"), SystemExit, "--ckpt"),
+    (dict(model="nope", aot_save="x.bin"), ValueError, "unknown model"),  # checked before the export
+    (dict(aot="x.bin"), SystemExit, "--ckpt"),
+    (dict(aot="x.bin", serve_iters=3, dim=8, batch=4), AotMismatch, "not a"),
     (dict(bf16=True), SystemExit, "--ckpt"),  # --bf16 is served; a checkpoint is still needed
     (dict(model="nope"), ValueError, "unknown model"),
     (dict(), SystemExit, "--ckpt"),
