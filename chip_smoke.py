@@ -115,7 +115,8 @@ Phases, each printed with its seconds:
     equal); then the test error over the whole synthetic test set
     beside the JAX runs' last logged ``test_err`` (0.0), a loading gate;
 19. train_ssl_mnist / train_ssl_cifar / train_ssl_te: each app's ``main`` at
-    the JAX defaults (full width, full data, batch 100), cut in depth: MNIST
+    the JAX defaults (full width, batch 100), cut in depth: the first
+    ``SSL_TRAIN_EXAMPLES`` training images (120 steps an epoch); MNIST
     one epoch and ``main`` again to two (a resume from ``ssl_state.npz``),
     CIFAR-10 and temporal ensembling one epoch (CIFAR-10's resume cut for
     time, ``run_ssl_apps``); s/step (each step
@@ -186,13 +187,37 @@ Phases, each printed with its seconds:
 35. onehot_toys: both toys, 300 iterations each, through ``python -m
     ctgan_tpu_torch onehot-toys`` on the card: ms/iter, finite costs.
 
+36. parallel_kernel (after kernel): the Philox kernels' row-segment
+    launches (a rank's rows of a global draw, ``core.rng.row_segments``) at
+    the flagship's three mask shapes in fp32 and bf16, keep 0.8 and 0.5,
+    and at a critic batch's dequantisation noise, for rank 1 of 2, rank 3
+    of 4 (the fused CT pass: 4 segments) and two segments at starts no
+    multiple of 8: bit for bit against the plain version's segments and
+    those elements of the one-segment launch of the global shape; each
+    rank-3-of-4 launch timed beside the one-segment launch of its size, its
+    bound, the plain version's segments and the library call;
+37. dp_world1: a world-1 NCCL group (``make_mesh(data=1)``): the flagship
+    at its defaults through ``parallel.data_parallel``, 10 iterations
+    substep by substep against the plain trainer within ``cuda_vs_cpu``'s
+    bf16 bounds, then 10 captured iterations of each (the collectives in
+    the graph): s/iter, peak memory, all-reduces an iteration, the final
+    states within Adam's bound; ``generate --batch 1024 --serve_iters 20``
+    without a group and through the world-1 mesh;
+38. dp_two_ranks: two ``chip_smoke.py --dp-rank`` processes on ``cuda:0``
+    over gloo (NCCL takes one rank per card): the flagship's data axis at
+    its defaults, 2 iterations substep by substep against one process within
+    those bounds, then 2 eager iterations through the step runner (gloo:
+    the rule printed), whose launches and segment launches are main-path
+    counts.
+
 Every app run above trains as the app does on the card: each iteration
 after one or two eager warm-up iterations is a replay of one captured CUDA
 graph (``LoopConfig.jit_step``), and so do resume_equal and
 resume_equal_gan (the resumed leg's first iteration eager, the
 uninterrupted leg's captured).
 
-The last lines are the card, the kernel record and ``{"ok": true, ...}``.
+The last lines are the card, the kernel record (with each kernel's
+segment launches, from dp_two_ranks) and ``{"ok": true, ...}``.
 Any failure raises and the script exits non-zero; without a CUDA device it
 stops before printing any result.  It writes only under ``build/`` and
 temporary directories.
@@ -234,7 +259,7 @@ from ctgan_tpu_torch.apps import wgan_lsun128 as app128
 from ctgan_tpu_torch.apps.common import gan_batches, pick_scorer
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
-from ctgan_tpu_torch.core.rng import RING, SEED_SLOTS
+from ctgan_tpu_torch.core.rng import RING, SEED_SLOTS, pass_rows, row_segments
 from ctgan_tpu_torch.data import DeviceSampler, cifar10, mnist, native, synthetic_images
 from ctgan_tpu_torch.eval import Inception2015, TrainedScorer, inception_score_from_probs
 from ctgan_tpu_torch.eval.inception2015 import strict_fp32
@@ -249,6 +274,7 @@ from ctgan_tpu_torch.kernels.dropout import keep_threshold, philox4x32_10, seed_
 from ctgan_tpu_torch.kernels.build import build_libraries, library_path
 from ctgan_tpu_torch.kernels.sass import disassemble, kernel_counts, op_bound_ms
 from ctgan_tpu_torch.models import classifiers, dcgan, good64, lsun128, resnet_cifar
+from ctgan_tpu_torch.parallel import collectives
 from ctgan_tpu_torch.train import (
     AcganConfig,
     AcganState,
@@ -673,7 +699,9 @@ def _iteration_draws(rand, device, cfg: app.Config) -> list:
     masks = lambda shape: [rand.dropout_mask(shape, kp, torch.bfloat16, device) for kp in (0.8, 0.5, 0.5)]
     out = [rand.labels(g_shape[0], 10), rand.noise(g_shape[0], 128), *masks(g_shape)]
     for _ in range(cfg.N_CRITIC):
-        out += [rand.dequant((cfg.BATCH_SIZE, 3072)), rand.noise(cfg.BATCH_SIZE, 128), *masks(pair)]
+        out += [rand.dequant((cfg.BATCH_SIZE, 3072)), rand.noise(cfg.BATCH_SIZE, 128)]
+        with pass_rows(rand, 4):  # real, fake, real, fake: the trainer's layout of the pass
+            out += masks(pair)
         out += [rand.gp_alpha(cfg.BATCH_SIZE), *masks(gp)]
     return out
 
@@ -879,8 +907,9 @@ def _substep_checker(device, *, bf16: bool, lr: float, beta1: float, zero_grad, 
     return check, report, failures
 
 
-def _lockstep_report(what: str, device, precision: str, iters: int, report: dict, failures: list) -> float:
-    line = (f"{what}{device} vs cpu in {precision}, {iters} iterations substep by substep: max param diff "
+def _lockstep_report(what: str, device, precision: str, iters: int, report: dict, failures: list,
+                     against: str = "cpu") -> float:
+    line = (f"{what}{device} vs {against} in {precision}, {iters} iterations substep by substep: max param diff "
             f"{report['diff']:.3g}, {report['moved'] / max(report['total'], 1):.5f} of the updated elements "
             f"beyond 1e-6; at most {report['grad_l1']:.3g} of a substep's gradient mass apart, "
             f"{report['flipped_mass']:.3g} stepping the other way")
@@ -2282,17 +2311,52 @@ def _ssl_line(name: str, out: dict) -> str:
             f"last {json.dumps(out['last'])}")
 
 
+# the SSL apps' training images in run_ssl_apps (cut for time; the synthetic sets hold 60,000 / 50,000)
+SSL_TRAIN_EXAMPLES = 12_000
+
+
+@contextlib.contextmanager
+def _ssl_train_subset(n: int = SSL_TRAIN_EXAMPLES):
+    """The semi-supervised apps train on the first ``n`` training images
+    inside (MNIST's training and dev splits together, CIFAR-10's training
+    split; the test splits whole): an epoch of ``n / 100`` steps."""
+    load_mnist, load_cifar = mnist.load_arrays, cifar10.load_normalized
+
+    def mnist_subset(*args, **kwargs):
+        d = dict(load_mnist(*args, **kwargs))
+        d["train"] = tuple(a[:n] for a in d["train"])
+        d["dev"] = tuple(a[:max(0, n - len(d["train"][0]))] for a in d["dev"])
+        return d
+
+    def cifar_subset(data_dir=None, subset="train"):
+        x, y = load_cifar(data_dir, subset)
+        return (x[:n], y[:n]) if subset == "train" else (x, y)
+
+    mnist.load_arrays, cifar10.load_normalized = mnist_subset, cifar_subset
+    try:
+        yield
+    finally:
+        mnist.load_arrays, cifar10.load_normalized = load_mnist, load_cifar
+
+
 def run_ssl_apps(device, out_dir: str, *, cifar_resume: bool = False) -> dict:
-    """The semi-supervised apps at the JAX defaults, cut in depth: MNIST
-    one epoch, ``main`` again to two (a resume), and two straight against
-    it (``resume_equal_ssl``), cuDNN deterministic; CIFAR-10 one epoch (and,
-    with ``cifar_resume``, a resume to two: cut by default to keep the
-    script under 4 minutes, since this resume took 22 s of 226 on an H100;
-    the CPU tests hold the CIFAR-10 resume exact); temporal ensembling one
-    epoch."""
+    """The semi-supervised apps at the JAX defaults, cut in depth: on the
+    first ``SSL_TRAIN_EXAMPLES`` training images (``_ssl_train_subset``),
+    MNIST one epoch, ``main`` again to two (a resume), and two straight
+    against it (``resume_equal_ssl``), cuDNN deterministic; CIFAR-10 one
+    epoch (and, with ``cifar_resume``, a resume to two: cut by default to
+    keep the script under 4 minutes, since this resume took 22 s of 226 on
+    an H100; the CPU tests hold the CIFAR-10 resume exact); temporal
+    ensembling one epoch."""
+    with _ssl_train_subset():
+        return _run_ssl_apps(device, out_dir, cifar_resume=cifar_resume)
+
+
+def _run_ssl_apps(device, out_dir: str, *, cifar_resume: bool) -> dict:
     runs = {}
     mnist_cfg = mnist_ssl_app.Config(epochs=1, out_dir=f"{out_dir}/mnist")
-    print(f"train_ssl_mnist: cut for time: epochs 1, resumed to 2 (of {mnist_ssl_app.Config().epochs}); batch "
+    print(f"train_ssl_mnist: cut for time: epochs 1, resumed to 2 (of {mnist_ssl_app.Config().epochs}), "
+          f"{SSL_TRAIN_EXAMPLES} training images (of 60,000); batch "
           f"{mnist_cfg.batch_size}, count {mnist_cfg.count}, lr {mnist_cfg.learning_rate} (the defaults), fp32")
     with _cudnn_deterministic():
         runs["train_ssl_mnist"] = _phase("train_ssl_mnist", phase_train_ssl, device, mnist_ssl_app, mnist_cfg)
@@ -2305,9 +2369,9 @@ def run_ssl_apps(device, out_dir: str, *, cifar_resume: bool = False) -> dict:
                       dataclasses.replace(mnist_cfg, epochs=2, out_dir=f"{out_dir}/mnist_straight"))
     cifar_cfg = cifar_ssl_app.Config(epochs=1, out_dir=f"{out_dir}/cifar")
     print(f"train_ssl_cifar: cut for time: epochs 1{', resumed to 2' if cifar_resume else ', no resume'} (of "
-          f"{cifar_ssl_app.Config().epochs}); batch {cifar_cfg.batch_size}, count {cifar_cfg.count}, "
-          f"lr {cifar_cfg.learning_rate} "
-          f"(the defaults), fp32 (TF32 convs)")
+          f"{cifar_ssl_app.Config().epochs}), {SSL_TRAIN_EXAMPLES} training images (of 50,000); batch "
+          f"{cifar_cfg.batch_size}, count {cifar_cfg.count}, lr {cifar_cfg.learning_rate} (the defaults), fp32 "
+          "(TF32 convs)")
     runs["train_ssl_cifar"] = _phase("train_ssl_cifar", phase_train_ssl, device, cifar_ssl_app, cifar_cfg)
     if cifar_resume:
         runs["train_ssl_cifar_resume"] = _phase("train_ssl_cifar_resume", phase_train_ssl, device, cifar_ssl_app,
@@ -2349,7 +2413,7 @@ def _tree_leaves(tree) -> list[np.ndarray]:
     return [np.asarray(tree, np.float64)]
 
 
-def _captured_arm(device, tr: _Trainer, iters: int, start: int, *, jit_step: bool) -> dict:
+def _captured_arm(device, tr: _Trainer, iters: int, start: int, *, jit_step: bool, mesh=None) -> dict:
     """``iters`` iterations of ``tr`` from its state at step ``start``
     through the loop's step runner, captured or not: the final state, every
     iteration's metrics, and over the iterations after the captured arm's
@@ -2357,11 +2421,13 @@ def _captured_arm(device, tr: _Trainer, iters: int, start: int, *, jit_step: boo
     synchronisation at each end), the kernels' launches per iteration and
     the host's ms per iteration to enqueue the first ``RING`` of them (a
     static provider's ring then holds the host back: later iterations
-    wait for the device); the peak device memory."""
+    wait for the device); the peak device memory.  ``mesh``: the step's
+    process grid (its collectives captured with it)."""
     sync = _sync(device)
     state = state_from_jax(tr.blob, device, tr.state_cls)
     state.step = start
-    run = capture_mod.step_runner(tr.step_fn, Randomness(tr.seed, device), name=tr.name, jit_step=jit_step)
+    run = capture_mod.step_runner(tr.step_fn, Randomness(tr.seed, device), name=tr.name, jit_step=jit_step,
+                                  mesh=mesh)
     first = _first_timed(start, start + iters, device)
     n, n_enqueue = start + iters - first, min(RING, start + iters - first)
     rows = []
@@ -2384,15 +2450,17 @@ def _captured_arm(device, tr: _Trainer, iters: int, start: int, *, jit_step: boo
                if torch.device(device).type == "cuda" else None, traced=None)
     if out["captured"]:
         # one more replay, after the state was read: the kernels the device ran in it
-        out["traced"] = _traced_launches(lambda: run(state, *tr.inputs(start + iters)))
+        out["traced"], out["collectives"] = _traced_launches(lambda: run(state, *tr.inputs(start + iters)),
+                                                             collectives=True)
         out["recorded"] = run.launches
     return out
 
 
-def _traced_launches(fn) -> tuple[int, int]:
+def _traced_launches(fn, collectives: bool = False):
     """The mask and uniform kernels that ``torch.profiler`` sees the device
     run while ``fn`` runs (a graph replay's kernels included): counted on
-    the device, apart from the wrappers' counters."""
+    the device, apart from the wrappers' counters; a segment launch counts
+    as its kernel's.  ``collectives``: also the NCCL kernels it ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2400,7 +2468,9 @@ def _traced_launches(fn) -> tuple[int, int]:
         fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum("dropout_mask_kernel" in n for n in names), sum("philox_uniform_kernel" in n for n in names)
+    launches = (sum("dropout_mask_kernel" in n or "dropout_mask_segments_kernel" in n for n in names),
+                sum("philox_uniform_kernel" in n or "philox_uniform_segments_kernel" in n for n in names))
+    return (launches, sum("nccl" in n.lower() for n in names)) if collectives else launches
 
 
 def phase_captured_equal(device, tr: _Trainer, iters: int, start: int = 0, chunk: int = 1) -> dict:
@@ -2856,15 +2926,363 @@ def phase_cli() -> dict:
     return {"list": listed.returncode, "unknown": unknown.returncode, "apps": len(CLI_APPS)}
 
 
+# ---------------------------------------------------------------- parallel: row segments, NCCL, two ranks
+
+DP_ITERS = 10  # the world-1 NCCL run's captured iterations, and the plain arm's
+DP_TWO_ITERS = 2  # the two-rank gloo run's eager iterations
+DP_SYNTHETIC = (4096, 1024)  # the synthetic CIFAR-10 of the parallel phases: training, test images
+DP_SERVE_BATCH, DP_SERVE_ITERS = 1024, 20
+DP_TIMEOUT_S = 600
+
+
+def segment_layouts(shape: tuple, blocks: int) -> list[tuple[str, tuple, list]]:
+    """``(label, local shape, segments)`` of ``parallel_kernel`` for a pass
+    of global ``shape`` made of ``blocks`` blocks (the fused CT pass: 4):
+    rank 1 of 2 and rank 3 of 4 (``core.rng.row_segments``), and two
+    segments whose starts are no multiple of 8 elements."""
+    out = []
+    for rank, world in ((1, 2), (3, 4)):
+        local = (shape[0] // world, *shape[1:])
+        out.append((f"rank {rank} of {world}", local, row_segments(local, rank, world, blocks)))
+    n = math.prod(shape)
+    segs = [(3, n // 3), (n // 2 + 5, n // 4 + 1)]
+    out.append(("unaligned", (sum(c for _, c in segs),), segs))
+    return out
+
+
+def parallel_kernel_cases() -> list[tuple[str, tuple, int, tuple]]:
+    """``(kernel, global shape, blocks, dtypes)``: the flagship's three mask
+    shapes (the G pass, the fused CT pass of 4 blocks, the GP pass) and the
+    dequantisation noise of a critic batch."""
+    both = (torch.float32, torch.bfloat16)
+    return ([("dropout_mask", shape, blocks, both) for shape, blocks in zip(flagship_mask_shapes(), (1, 4, 1))]
+            + [("philox_uniform", dequant_shapes()[0], 1, (torch.float32,))])
+
+
+def phase_parallel_kernel(device, clock_hz: float) -> dict:
+    """The segment launches (a rank's rows of a global draw) at every
+    flagship mask shape in fp32 and bf16, keep 0.8 and 0.5, and at the
+    dequantisation shape, for rank 1 of 2, rank 3 of 4 and an unaligned
+    layout: bit for bit equal to the plain version's segments and to those
+    elements of the one-segment launch of the global shape.  Then at keep
+    0.5 each rank-3-of-4 segment launch timed beside the one-segment launch
+    of the same size, its bound (bytes written at 3.35 TB/s, or the
+    one-segment loop's SASS at the card's integer rate), the plain
+    version's segments and the library call (``bernoulli_``,
+    ``uniform_``) at the local shape."""
+    seed = 4321
+    table = seed_table([seed], device)
+    counts = kernel_counts(disassemble(library_path("dropout_mask")))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    checked, rows = 0, {}
+    for name, shape, blocks, dtypes in parallel_kernel_cases():
+        for dtype in dtypes:
+            for kp in ((0.8, 0.5) if name == "dropout_mask" else (None,)):
+                if name == "dropout_mask":
+                    draw = lambda shp, kp=kp, dtype=dtype, **kw: dropout_mask(table, shp, kp, dtype, device, **kw)
+                    plain = lambda shp, kp=kp, dtype=dtype, **kw: dropout_mask_reference(table, shp, kp, dtype,
+                                                                                         device, **kw)
+                else:
+                    draw = lambda shp, **kw: philox_uniform(table, shp, 1 / 128, device, **kw)
+                    plain = lambda shp, **kw: philox_uniform_reference(table, shp, 1 / 128, device, **kw)
+                whole = draw(shape).reshape(-1)
+                for label, local, segs in segment_layouts(shape, blocks):
+                    got = draw(local, segments=segs)
+                    torch.cuda.synchronize()
+                    rows_of = torch.cat([whole[a:a + c] for a, c in segs]).reshape(local)
+                    if not (torch.equal(got, plain(local, segments=segs)) and torch.equal(got, rows_of)):
+                        raise AssertionError(f"parallel_kernel: {name} {shape} {dtype} kp {kp} {label}: the segment "
+                                             "launch is not those rows of the global draw")
+                    checked += 1
+            label, local, segs = segment_layouts(shape, blocks)[1]
+            if name == "dropout_mask":
+                seg_fn = lambda: dropout_mask(table, local, 0.5, dtype, device, segments=segs)
+                one_fn = lambda: dropout_mask(table, local, 0.5, dtype, device)
+                plain_fn = lambda: dropout_mask_reference(table, local, 0.5, dtype, device, segments=segs)
+                library_fn = lambda: torch.empty(local, dtype=dtype, device=device).bernoulli_(0.5)
+            else:
+                seg_fn = lambda: philox_uniform(table, local, 1 / 128, device, segments=segs)
+                one_fn = lambda: philox_uniform(table, local, 1 / 128, device)
+                plain_fn = lambda: philox_uniform_reference(table, local, 1 / 128, device, segments=segs)
+                library_fn = lambda: torch.empty(local, device=device).uniform_(0, 1 / 128)
+            n = math.prod(local)
+            byte_ms = _bound_ms(n * dtype.itemsize)
+            op_ms, _ = op_bound_ms(counts[_sass_key(name, dtype)], n, sms, clock_hz)
+            rows[f"{name} {list(local)} {_dtype_name(dtype)} {label} ({len(segs)} segments)"] = dict(
+                segment_ms=_time_ms(seg_fn, 200), one_segment_ms=_time_ms(one_fn, 200), bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations", plain_ms=_time_ms(plain_fn, 10),
+                library_ms=_time_ms(library_fn, 200))
+    for key, r in rows.items():
+        print(f"parallel_kernel {key}: {r['segment_ms'] * 1e3:.3f} us; one segment of the same size "
+              f"{r['one_segment_ms'] * 1e3:.3f} us; bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); plain "
+              f"version {r['plain_ms'] * 1e3:.1f} us; library {r['library_ms'] * 1e3:.3f} us")
+    print(f"parallel_kernel: {checked} segment launches bit for bit against the plain version and the global draw's "
+          "rows (rank 1 of 2, rank 3 of 4, unaligned starts)")
+    return {"checked": checked, "rows": rows}
+
+
+@contextlib.contextmanager
+def _small_synthetic():
+    """The flagship apps draw ``DP_SYNTHETIC``'s synthetic CIFAR-10 inside
+    (cut for time: drawing the 60,000 images takes seconds a process)."""
+    from ctgan_tpu_torch.data import synthetic
+
+    before = cifar10._synthetic
+    cifar10._synthetic = lambda: synthetic.synthetic_cifar10(*DP_SYNTHETIC)
+    try:
+        yield
+    finally:
+        cifar10._synthetic = before
+
+
+def _zero_counters() -> None:
+    for kernel in (dropout_mask, philox_uniform):
+        kernel.launches = kernel.segment_launches = 0
+
+
+def _counters() -> dict:
+    return {"launches": dropout_mask.launches, "uniform_launches": philox_uniform.launches,
+            "segment_launches": dropout_mask.segment_launches,
+            "uniform_segment_launches": philox_uniform.segment_launches}
+
+
+def _moment_l1(got: dict, want: dict) -> float:
+    """The largest over G and D of the L1 distance of the first moments
+    (TF-Adam at beta1 0: the last substep's gradient) over the L1 mass of
+    ``want``'s."""
+    worst = 0.0
+    for opt in ("gen_opt", "disc_opt"):
+        diff = sum(float(np.abs(np.asarray(got[opt]["m"][k], np.float64) - w).sum())
+                   for k, w in want[opt]["m"].items())
+        mass = sum(float(np.abs(np.asarray(w, np.float64)).sum()) for w in want[opt]["m"].values())
+        worst = max(worst, diff / mass)
+    return worst
+
+
+def _free_run_gap(got: dict, want: dict, lr: float, n_updates: int, what: str,
+                  grad_bound: float | None = None) -> dict:
+    """Two free-running flagship runs of the same draws: the largest param
+    difference, at most the two runs' largest Adam moves (TF-Adam moves an
+    element by at most lr / sqrt(1 - beta2) a step, 3.2 lr at beta2 0.9);
+    the last gradients' L1 distance over their mass, within ``grad_bound``
+    where one is given (``cuda_vs_cpu``'s bound of a substep).  In bf16 two
+    runs whose sums differ drift apart over iterations (rounding flips
+    compound), so there only the Adam bound holds: ``_lockstep_mesh``
+    compares substep by substep."""
+    params = lambda state: _tree_leaves({"g": state["gen_params"], "d": state["disc_params"]})
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(params(got), params(want)))
+    bound = 2 * lr / math.sqrt(1 - 0.9) * n_updates
+    grad_l1 = _moment_l1(got, want)
+    if not diff <= bound or (grad_bound is not None and not grad_l1 <= grad_bound):
+        raise AssertionError(f"{what}: max param diff {diff:.3g} (bound {bound:.3g}), last gradients {grad_l1:.3g} "
+                             f"of their L1 mass apart (bound {grad_bound})")
+    return {"max_param_diff": diff, "param_bound": bound, "grad_l1": grad_l1}
+
+
+def _lockstep_mesh(device, plain, meshed, blob: dict, *, iters: int, what: str, check: bool = True) -> dict:
+    """``iters`` flagship iterations substep by substep: the mesh trainer
+    (``meshed``: hooks, batch norm over the group, this rank's rows of the
+    batch and of the draws) against the plain one on the card, each substep
+    from the same state (the plain arm's) and with the same draws, held to
+    ``cuda_vs_cpu``'s bf16 bounds (``_substep_checker``).  Every rank of a
+    group runs it (the mesh substeps are collective); ``check`` False runs
+    without raising (the ranks but the first).  Returns the checker's
+    report."""
+    mcfg = resnet_cifar.ResnetCifarConfig()
+    tcfg = plain.trainer.cfg
+    checker, report, failures = _substep_checker(device, bf16=True, lr=tcfg.lr, beta1=tcfg.beta1,
+                                                 zero_grad=resnet_cifar.zero_grad_params(mcfg))
+    state = state_from_jax(blob, device)
+    for it in range(iters):
+        idx = plain.sampler.host_indices(it)
+        real_stack, label_stack = plain.sampler.gather(idx)
+        local_real, local_labels = meshed.sampler.gather(idx)
+        rand_a, rand_b = plain.rand.for_step(state.step), meshed.rand.for_step(state.step)
+        before, dev = _copy_state(state, "cpu"), _copy_state(state, device)
+        got = {"gen_cost": meshed.trainer.gen_substep(dev, rand_b)}
+        want = {"gen_cost": plain.trainer.gen_substep(state, rand_a)}
+        checker("gen", before, dev, _copy_state(state, "cpu"), got, want)  # the checker reads its reference on the host
+        for i in range(tcfg.critic_iters):
+            before, dev = _copy_state(state, "cpu"), _copy_state(state, device)
+            got = meshed.trainer.critic_substep(dev, local_real[i], local_labels[i], rand_b)
+            want = plain.trainer.critic_substep(state, real_stack[i], label_stack[i], rand_a)
+            checker("disc", before, dev, _copy_state(state, "cpu"), got, want)
+        state.step += 1
+    if check:
+        _lockstep_report(f"{what}: the mesh step on ", device, "bfloat16", iters, report, failures,
+                         against="the plain step on the same card")
+    return dict(report, failures=failures)
+
+
+def phase_dp_world1(device, out_dir: str, iters: int = DP_ITERS) -> dict:
+    """A world-1 NCCL group on the card and the flagship at its defaults
+    (bf16, dim 128, batch 64) through ``make_mesh(data=1)`` and the hooks:
+    ``iters`` iterations substep by substep against the plain trainer
+    within ``cuda_vs_cpu``'s bf16 bounds (``_lockstep_mesh``); then
+    ``iters`` captured iterations of each (the mesh's with its collectives
+    in the graph), s/iter, peak memory, the all-reduces of an iteration,
+    and the two final states within Adam's bound (``_free_run_gap``).  Then ``generate --batch 1024 --serve_iters 20``
+    without a group and through the world-1 mesh."""
+    import torch.distributed as dist
+
+    from ctgan_tpu_torch.parallel import make_mesh
+
+    cfg = app.Config()
+    serve = {"eager": generate.main(cfg=generate.Config(batch=DP_SERVE_BATCH, serve_iters=DP_SERVE_ITERS),
+                                    device=device)}
+    dist.init_process_group("nccl", store=dist.FileStore(f"{out_dir}/store", 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh(data=1, device=device)
+        with _small_synthetic():
+            plain, meshed = app.setup(cfg, device), app.setup(cfg, device, mesh)
+        blob = state_to_jax(plain.state)
+        with _cudnn_deterministic():
+            lock_diff = _lockstep_mesh(device, plain, meshed, blob, iters=iters, what="dp_world1")["diff"]
+        per = 3 + 6 * cfg.N_CRITIC
+        arms = {}
+        for name, fl in (("plain", plain), ("mesh", meshed)):
+            tr = _Trainer(f"flagship_{name}", blob, AcganState, app.make_step_fn(fl), gan_batches(fl), cfg.seed, per,
+                          cfg.N_CRITIC)
+            _zero_counters()  # the main path of this slice: the mesh arm's counts are read right after it
+            arms[name] = _captured_arm(device, tr, iters, 0, jit_step=True, mesh=mesh if name == "mesh" else None)
+            arms[name]["counters"] = _counters()
+            if not arms[name]["captured"]:
+                raise AssertionError(f"dp_world1: the {name} step was not captured")
+        # the collectives of one iteration, counted on the host in an eager step of the mesh trainer
+        calls = dict.fromkeys(collectives.CALLS, 0)
+        collectives.CALLS.update(calls)
+        state = state_from_jax(blob, device)
+        state.step = 1
+        app.make_step_fn(meshed)(state, meshed.sampler.host_indices(1), meshed.rand)
+        calls = dict(collectives.CALLS)
+        serve["mesh"] = generate.main(cfg=generate.Config(batch=DP_SERVE_BATCH, serve_iters=DP_SERVE_ITERS),
+                                      device=device)
+    finally:
+        dist.destroy_process_group()
+    dp, base = arms["mesh"], arms["plain"]
+    if (dp["masks"], dp["uniforms"]) != (per, cfg.N_CRITIC) or dp["traced"] != dp["recorded"]:
+        raise AssertionError(f"dp_world1: {dp['masks']}, {dp['uniforms']} launches per iteration, traced "
+                             f"{dp['traced']}, recorded {dp['recorded']}")
+    if not calls["all_reduce"] or base["collectives"]:
+        raise AssertionError(f"dp_world1: the mesh step issued {calls}; the plain step's replay ran "
+                             f"{base['collectives']} NCCL kernels")
+    gap = _free_run_gap(dp["state"], base["state"], cfg.LR, (iters - 1) + cfg.N_CRITIC * iters, "dp_world1")
+    gib = lambda b: b / 2**30
+    print(f"dp_world1: world-1 NCCL mesh, flagship at its defaults (bf16, dim {cfg.DIM_G}, batch {cfg.BATCH_SIZE}), "
+          f"{iters} captured iterations: {dp['s_per_iter']:.5f} s/iter against {base['s_per_iter']:.5f} without the "
+          f"mesh (over the last {dp['timed']}); {calls['all_reduce']} all-reduces an iteration (issued on the host; "
+          f"a traced replay runs {dp['collectives']} NCCL kernels: one rank's all-reduce launches none); peak "
+          f"{gib(dp['peak_bytes']):.3f} GiB against {gib(base['peak_bytes']):.3f}; {iters} iterations substep by "
+          f"substep: max param diff {lock_diff:.3g}; free-running, after {iters}: max param diff "
+          f"{gap['max_param_diff']:.3g} (Adam's bound {gap['param_bound']:.3g}), last gradients {gap['grad_l1']:.3g} "
+          f"of their L1 mass apart; serving at batch "
+          f"{DP_SERVE_BATCH}: {serve['mesh']['value']:.1f} images/s through the mesh, {serve['eager']['value']:.1f} "
+          "without", flush=True)
+    return dict(s_per_iter=dp["s_per_iter"], plain_s_per_iter=base["s_per_iter"], all_reduces=calls["all_reduce"],
+                traced_nccl_kernels=dp["collectives"],
+                peak_gib=gib(dp["peak_bytes"]), plain_peak_gib=gib(base["peak_bytes"]), lockstep_diff=lock_diff,
+                serve_images_per_s=serve["mesh"]["value"], eager_serve_images_per_s=serve["eager"]["value"],
+                **gap, **dp["counters"])
+
+
+def dp_rank_child(rank: int, store: str, out: str) -> int:
+    """One of ``phase_dp_two_ranks``' two processes: rank ``rank`` of a gloo
+    group on ``cuda:0``, the flagship at its defaults through
+    ``make_mesh(data=2)``.  First ``DP_TWO_ITERS`` iterations substep by
+    substep against the plain trainer on the global batch in this process
+    (``_lockstep_mesh``, cuDNN deterministic, so that both ranks start
+    every substep from the same state); then ``DP_TWO_ITERS`` iterations
+    through the train loop's step runner (gloo: eager, the rule printed),
+    the main path, counted.  Writes the report, the counters and the
+    seconds under ``out``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from ctgan_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        mesh = make_mesh(data=2, device=device)
+        with _small_synthetic():
+            plain, fl = app.setup(app.Config(), device), app.setup(app.Config(), device, mesh)
+        blob = state_to_jax(plain.state)
+        with _cudnn_deterministic():
+            report = _lockstep_mesh(device, plain, fl, blob, iters=DP_TWO_ITERS, what="dp_two_ranks", check=False)
+        run = capture_mod.step_runner(app.make_step_fn(fl), fl.rand, name="flagship_dp", jit_step=True, mesh=mesh)
+        _zero_counters()  # this path's counts, read right after it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(DP_TWO_ITERS):
+            run(fl.state, fl.sampler.host_indices(it))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        Path(f"{out}/rank{rank}.pkl").write_bytes(pickle.dumps(
+            {"counters": _counters(), "seconds": seconds, "report": report}))
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_dp_two_ranks(device, out_dir: str) -> dict:
+    """Two processes on ``cuda:0`` over gloo (NCCL takes one rank per card):
+    the flagship's data axis at its defaults (dim 128, batch 64, bf16:
+    32 rows a rank), ``DP_TWO_ITERS`` iterations substep by substep
+    against one process on the global batch within ``cuda_vs_cpu``'s bf16
+    bounds (rank 0's check), then eager through the step runner.  Each
+    rank's mask and uniform launches there, and its segment launches (rank
+    1 all of them, rank 0 the fused CT pass's), are the main path's."""
+    import pickle
+
+    store = f"{out_dir}/store2"
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(rank), store, out_dir],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=DP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"dp_two_ranks: rank {rank} exited {p.returncode}: {stderr[-3000:]}")
+    rule = [line for line in outs[0][0].splitlines() if "cannot be captured" in line]
+    if not rule:
+        raise AssertionError("dp_two_ranks: the step runner did not print the gloo rule")
+    ranks = [pickle.loads(Path(f"{out_dir}/rank{r}.pkl").read_bytes()) for r in range(2)]
+    report = ranks[0]["report"]
+    _lockstep_report("dp_two_ranks: 2 gloo ranks on ", device, "bfloat16", DP_TWO_ITERS, report, report["failures"],
+                     against="one process on the same card")
+    per_rank = [r["counters"] for r in ranks]
+    if not all(c["segment_launches"] and c["uniform_launches"] for c in per_rank) or not per_rank[1][
+            "uniform_segment_launches"]:
+        raise AssertionError(f"dp_two_ranks: the ranks' launches {per_rank}")
+    counters = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+    print(f"dp_two_ranks: 2 processes on one card over gloo ({rule[0]}), the flagship's data axis at its defaults "
+          f"(bf16, dim 128, batch 64: 32 rows a rank): {DP_TWO_ITERS} iterations substep by substep against one "
+          f"process, max param diff {report['diff']:.3g}, at most {report['grad_l1']:.3g} of a substep's gradient mass "
+          f"apart, {report['flipped_mass']:.3g} stepping the other way; {DP_TWO_ITERS} eager iterations through the "
+          f"step runner in {ranks[0]['seconds']:.2f} s; launches per rank {json.dumps(per_rank)}", flush=True)
+    return dict(seconds=ranks[0]["seconds"], max_param_diff=report["diff"], grad_l1=report["grad_l1"],
+                flipped_mass=report["flipped_mass"], **counters)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:  # a process of phase_dp_two_ranks
+        return dp_rank_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     device = torch.device("cuda")
     t0 = time.perf_counter()
     smi, clock_hz = _phase("device", phase_device)
     _phase("build", phase_build)
     kernels = _phase("kernel", phase_kernel, device, clock_hz)
+    parallel_kernel = _phase("parallel_kernel", phase_parallel_kernel, device, clock_hz)
     capture = _phase("capture", phase_capture, device)
     draws = _phase("draws", phase_draws, device)
     _phase("cuda_vs_cpu", phase_cuda_vs_cpu, device)
@@ -2934,11 +3352,17 @@ def main() -> int:
         aot_serve = _phase("aot_serve", phase_aot_serve, device, out_dir, jax_ckpt["serve"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_toys_") as out_dir:
         toys = _phase("onehot_toys", phase_onehot_toys, device, out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
+        dp_world1 = _phase("dp_world1", phase_dp_world1, device, out_dir)
+        dp_two_ranks = _phase("dp_two_ranks", phase_dp_two_ranks, device, out_dir)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
             "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
-            "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"], **lsun_runs["runs"]}
+            "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"], **lsun_runs["runs"],
+            "dp_world1": dp_world1, "dp_two_ranks": dp_two_ranks}
     launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
                 "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
+    segment_launches = {"dropout_mask": sum(r.get("segment_launches", 0) for r in runs.values()),
+                        "philox_uniform": sum(r.get("uniform_segment_launches", 0) for r in runs.values())}
     print(f"train: {json.dumps(dataclasses.asdict(cfg) | {'out_dir': '<tmp>'})}")
     print(_train_line("train (bf16)", train))
     print(_train_line("train_fp32", train_fp32))
@@ -2982,6 +3406,9 @@ def main() -> int:
           f"{inception['cpu_gap']:.3g}; the TrainedScorer for the later phases fitted in {scorer_fit_s:.2f} s")
     print(f"aot_serve: {json.dumps(aot_serve)}")
     print(f"onehot_toys: {json.dumps(toys)}")
+    print(f"parallel_kernel: {json.dumps(parallel_kernel)}")
+    print(f"dp_world1: {json.dumps(dp_world1)}")
+    print(f"dp_two_ranks: {json.dumps(dp_two_ranks)}")
     print("inception_ref, the Inception-2015 scorer, aot_serve and the toys launch no dropout_mask and no "
           "philox_uniform (checked per phase; the toys have no dropout)")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):
@@ -2989,11 +3416,19 @@ def main() -> int:
               + " + ".join(f"{k} {r[key]}" for k, r in runs.items()) + f" = {launches[name]}")
         if not launches[name]:
             raise AssertionError(f"{name} was not launched on the main path")
+        print(f"{name} segment launches on the main path (dp_two_ranks' ranks): {segment_launches[name]}")
+        if not segment_launches[name]:
+            raise AssertionError(f"{name}'s segment form was not launched on the main path")
+    # the segment launch at the main path's busiest layout: the fused CT pass (bf16) and a critic batch's noise
+    segment_ms = {name: next(r["segment_ms"] for key, r in parallel_kernel["rows"].items() if key.startswith(prefix))
+                  for name, prefix in (("dropout_mask", "dropout_mask [64, 128, 8, 8] bfloat16"),
+                                       ("philox_uniform", "philox_uniform"))}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"], "replaces": k["replaces"],
-         "launches": launches[k["name"]], **{f: k[f] for f in (
+         "launches": launches[k["name"]], "segment_launches": segment_launches[k["name"]],
+         "segment_ms": segment_ms[k["name"]], **{f: k[f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,16 @@
 Each app is a module with a ``Config`` dataclass and ``main(argv,
 device=...)`` that takes ``--FIELD value`` for every field; this dispatcher
 routes a short name (the JAX package's) to the port's module.
-``--platform cpu|cuda``, as the first argument, picks the device the app
-runs on; the default is ``cuda``.
+``--platform cpu|cuda`` (or ``--device``), as the first argument, picks the
+device the app runs on; the default is ``cuda``.  ``flagship`` names
+``cifar-resnet``.
+
+Under ``torchrun`` every process runs the same command, and the flagship
+and ``generate`` run over all of them (``apps.common.maybe_mesh``): NCCL
+on the card, one GPU per process, gloo with ``--platform cpu``:
+
+    torchrun --nproc_per_node 2 -m ctgan_tpu_torch --platform cpu flagship --ITERS 3 --DIM_G 16 --DIM_D 16
+    torchrun --nproc_per_node 8 -m ctgan_tpu_torch flagship --MODEL_AXIS 2 --out_dir runs/flagship
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ APPS = {
                  "(new; reference inlined sampling in the trainers)"),
 }
 PLATFORMS = ("cpu", "cuda")
+ALIASES = {"flagship": "cifar-resnet"}
 
 
 def _usage() -> str:
@@ -55,6 +64,9 @@ def _usage() -> str:
         lines.append(f"  {'':<{width}}    reference: {ref}")
     lines.append("")
     lines.append("e.g.  ctgan-tpu-torch cifar-resnet --ITERS 100000 --out_dir runs/flagship")
+    lines.append("      ('flagship' names cifar-resnet; --device is --platform)")
+    lines.append("      torchrun --nproc_per_node N -m ctgan_tpu_torch flagship ...  (cifar-resnet and generate "
+                 "run over the N processes: NCCL, one GPU each; gloo with --platform cpu)")
     return "\n".join(lines)
 
 
@@ -71,15 +83,15 @@ def main(argv: list[str] | None = None) -> int:
 def _dispatch(argv: list[str] | None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
-    if argv and argv[0] == "--platform":
+    if argv and argv[0] in ("--platform", "--device"):
         if len(argv) < 2 or argv[1] not in PLATFORMS:
-            print("ctgan-tpu-torch: --platform needs a value (cpu|cuda)", file=sys.stderr)
+            print(f"ctgan-tpu-torch: {argv[0]} needs a value (cpu|cuda)", file=sys.stderr)
             return 2
         device, argv = argv[1], argv[2:]
     if not argv or argv[0] in ("-h", "--help", "list"):
         print(_usage())
         return 0
-    name, rest = argv[0], argv[1:]
+    name, rest = ALIASES.get(argv[0], argv[0]), argv[1:]
     if name not in APPS:
         print(f"ctgan-tpu-torch: unknown app '{name}'\n\n{_usage()}", file=sys.stderr)
         return 2

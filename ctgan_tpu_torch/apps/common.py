@@ -1,7 +1,8 @@
 """Shared app plumbing (counterpart of ``ctgan_tpu/apps/common.py``):
 dataclass configs as command lines, the output directory, sample grids,
-the choice of IS/FID scorer, the host input paths of the image apps, and
-the train loop of the unconditional GAN apps."""
+the choice of IS/FID scorer, the host input paths of the image apps, the
+train loop of the unconditional GAN apps, and the process grid of a run
+under ``torchrun`` (:func:`maybe_mesh`)."""
 
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from ..eval import Inception2015, TrainedScorer, find_inception_file
 from ..utils.images import save_images
 
 __all__ = [
-    "HostFeed", "dir_feed", "find_inception_file", "gan_batches", "gan_step_fn", "native_feed", "parse_config",
-    "pick_scorer",
+    "HostFeed", "dir_feed", "find_inception_file", "gan_batches", "gan_step_fn", "maybe_mesh", "native_feed",
+    "parse_config", "pick_scorer",
     "require_device", "run_gan_loop", "save_sample_grid", "setup_out_dir",
 ]
 
@@ -105,6 +106,57 @@ def pick_scorer(channels: int, size: int, out_dir: str, train_data=None, device=
     return scorer
 
 
+def maybe_mesh(n_devices: int | None = None, model_axis: int = 1, device="cuda"):
+    """The run's ``data x model`` process grid (``parallel.make_mesh``) when
+    it runs as more than one process, else None, as the JAX package's
+    ``maybe_mesh`` returns None for one device
+    (``ctgan_tpu/apps/common.py:113-134``).
+
+    The processes are torchrun's: ``WORLD_SIZE``, ``RANK`` and
+    ``LOCAL_RANK`` say how many and which.  Unless a process group is
+    initialised already, this initialises one: NCCL on ``cuda:LOCAL_RANK``
+    for a CUDA ``device``, gloo for the CPU; a failed initialisation, or a
+    rank without its GPU, raises.  A process group its caller initialised
+    is used as it is, whatever its size (one process too: the mesh path
+    with its collectives).  ``n_devices``, when given, must be the number
+    of processes."""
+    import torch.distributed as dist
+
+    from ..parallel import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", "1"))
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"n_devices={n_devices}, but the run has {world} processes (one device each)")
+    if world <= 1 and not dist.is_initialized():
+        return None
+    if world < model_axis:
+        raise ValueError(f"model_axis={model_axis} needs at least that many devices; "
+                         f"only {world} available (of {world} total)")
+    if world % model_axis:
+        raise ValueError(f"model_axis={model_axis} does not divide the {world} processes")
+    device = torch.device(device)
+    if dist.is_initialized():
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        return make_mesh(data=world // model_axis, model=model_axis, device=device)
+    rank, local = int(os.environ["RANK"]), int(os.environ.get("LOCAL_RANK", "0"))
+    if device.type == "cuda":
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} (LOCAL_RANK {local}) sees {torch.cuda.device_count()} GPUs: a CUDA "
+                               "run needs one GPU per process on each node")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", rank=rank, world_size=world, device_id=device)
+    else:
+        dist.init_process_group("gloo", rank=rank, world_size=world)
+    return make_mesh(data=world // model_axis, model=model_axis, device=device)
+
+
+def is_main(mesh) -> bool:
+    """Whether this process logs, prints and writes: rank 0, or the only one."""
+    return mesh is None or mesh.rank == 0
+
+
 def require_device(device) -> "torch.device":
     """``device`` as a ``torch.device``; a CUDA device must be present."""
     device = torch.device(device)
@@ -183,7 +235,8 @@ def gan_step_fn(app, chw: tuple[int, int, int]):
     return step_fn
 
 
-def run_gan_loop(cfg, state, step_fn, batch, rand, test_fn, out_dir: str, device, *, print_std: bool = False):
+def run_gan_loop(cfg, state, step_fn, batch, rand, test_fn, out_dir: str, device, *, print_std: bool = False,
+                 mesh=None):
     """The JAX GAN apps' ``train_loop`` call for a ``GanState``: to
     ``cfg.ITERS`` at their cadence (print every 100, test every
     ``sample_every``, save every ``save_every`` into ``<out_dir>/ckpt``),
@@ -191,7 +244,9 @@ def run_gan_loop(cfg, state, step_fn, batch, rand, test_fn, out_dir: str, device
     resuming from ``out_dir``.  ``step_fn(state, *batch(i), rand)`` runs
     iteration ``i`` (``batch``: :func:`gan_batches`).  Returns the final
     state and the records printed by this process.  ``print_std`` prints
-    each metric's spread beside its mean, as the LSUN app's logger does."""
+    each metric's spread beside its mean, as the LSUN app's logger does.
+    Over a ``mesh`` of processes only rank 0 logs and writes (``train_loop``);
+    ``state`` is then replicated (no model-sharded leaves)."""
     from ..bridge import state_from_jax, state_to_jax
     from ..train import GanState, LoopConfig, train_loop
     from ..utils.logging import MetricLogger
@@ -207,11 +262,12 @@ def run_gan_loop(cfg, state, step_fn, batch, rand, test_fn, out_dir: str, device
         iters=cfg.ITERS, print_every=100, test_every=cfg.sample_every, save_every=cfg.save_every,
         ckpt_dir=f"{out_dir}/ckpt", allow_fresh_start=cfg.allow_fresh_start,
     )
-    logger = MetricLogger(out_dir, print_std=print_std)
+    main = is_main(mesh)
+    logger = MetricLogger(out_dir, print_std=print_std, quiet=not main)
     state = train_loop(
         state, step_fn, next_batch, rand, lcfg, logger=logger, test_fn=test_fn,
         data_state=lambda: {"i": counter["i"]},
         set_data_state=lambda s: counter.update(i=int(s["i"])),
-        to_blob=state_to_jax, from_blob=lambda blob: state_from_jax(blob, device, GanState),
+        to_blob=state_to_jax, from_blob=lambda blob: state_from_jax(blob, device, GanState), mesh=mesh,
     )
     return state, logger.records

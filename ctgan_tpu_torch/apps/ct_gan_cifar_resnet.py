@@ -2,11 +2,28 @@
 (counterpart of ``ctgan_tpu/apps/ct_gan_cifar_resnet.py``).
 
     python -m ctgan_tpu_torch.apps.ct_gan_cifar_resnet --ITERS 15 --out_dir runs/x
+    torchrun --nproc_per_node 4 -m ctgan_tpu_torch flagship --ITERS 15 --MODEL_AXIS 2 --out_dir runs/x
 
 The flags are the fields of :class:`Config`, under the JAX app's names and
 defaults, with these differences.  ``CUDA_DROPOUT`` takes the place of
-``PALLAS_DROPOUT`` and, like it, is on by default.  ``REMAT``,
-``OPT_STATE_DTYPE`` and ``MODEL_AXIS`` are not ported.
+``PALLAS_DROPOUT`` and, like it, is on by default.  ``REMAT`` and
+``OPT_STATE_DTYPE`` are not ported.
+
+Several processes (``torchrun``, one per GPU; gloo on the CPU with
+``--platform cpu``): as the JAX app trains over every device it sees, the
+run trains over a ``data x model`` grid of its processes
+(``common.maybe_mesh``, ``MODEL_AXIS`` the model axis), with one device's
+semantics (``parallel.data_parallel``): each rank trains on its rows of the
+global ``BATCH_SIZE`` batch (split over all ranks), draws its rows of the
+one-process draws, normalises G's batch norms over the global batch and
+averages the gradients over every rank before Adam; under ``MODEL_AXIS >
+1`` G's input projection (and any other leaf the rules match) is stored in
+shards, with its Adam moments, and gathered in each substep.  The JAX app
+runs this through its unfused step because of an XLA miscompile
+(``docs/XLA_GSPMD_SCAN_BUG.md``); the port has no such bug and keeps one
+step (captured on the card over NCCL).  Rank 0 alone evaluates (with the
+gathered parameters), prints, logs and writes checkpoints, with full
+leaves in the JAX format, so a run resumes at another number of processes.
 
 Precision.  ``BF16`` is on by default, as in the JAX app, and like the JAX
 app (``ctgan_tpu/apps/ct_gan_cifar_resnet.py:87-91``) it sets the bf16
@@ -47,6 +64,7 @@ with the dropout kernel's plain version.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -57,10 +75,11 @@ from ..bridge import from_jax_params, state_from_jax, state_to_jax
 from ..core import Randomness, default_policy, format_param_table, split_params
 from ..data import DeviceSampler, load_arrays
 from ..models import resnet_cifar
+from ..parallel import Mesh, data_parallel, fetch_full_params, fetch_full_state, shard_state
 from ..train import AcganConfig, AcganState, AcganTrainer, LoopConfig, train_loop
 from ..utils.logging import MetricLogger
 from . import common
-from .common import pick_scorer, require_device, save_sample_grid, setup_out_dir
+from .common import is_main, pick_scorer, require_device, save_sample_grid, setup_out_dir
 
 __all__ = ["Config", "Flagship", "main", "make_step_fn", "make_test_fn", "parse_config", "setup"]
 
@@ -94,6 +113,7 @@ class Config:
     CLEAN_PASS: bool = True
     FUSE_CT_PASSES: bool = True
     FUSE_MEANPOOL: bool = True
+    MODEL_AXIS: int = 1
     seed: int = 0
     allow_fresh_start: bool = False
     out_dir: str = "runs/ct_gan_cifar_resnet"
@@ -112,13 +132,17 @@ class Flagship(NamedTuple):
     sampler: DeviceSampler
     rand: Randomness
     data: dict  # load_arrays: {"train": (x, y), "test": (x, y)}
+    mesh: Mesh | None = None  # the process grid of a run over several processes
+    specs: dict | None = None  # the state's spec trees over the mesh
+    eval_trainer: AcganTrainer | None = None  # the one-device trainer of the evaluation
 
 
-def setup(cfg: Config, device) -> Flagship:
+def setup(cfg: Config, device, mesh=None) -> Flagship:
     """Fresh trainer and state, the data, the device-resident sampler and
     the base randomness of a run of ``cfg`` on ``device``.  Sets the
     process-wide precision policy: bf16 where ``cfg.BF16`` and the device is
-    CUDA, else fp32."""
+    CUDA, else fp32.  Over a ``mesh`` the trainer, state, sampler and
+    randomness are this rank's (``parallel.data_parallel``)."""
     device = torch.device(device)
     default_policy(enable_bf16=cfg.BF16 and device.type == "cuda")
     if cfg.CONDITIONAL and not cfg.ACGAN and not cfg.NORMALIZATION_D:
@@ -147,13 +171,18 @@ def setup(cfg: Config, device) -> Flagship:
     gparams, dparams, rest = split_params(params, "Generator", "Discriminator")
     if rest:
         raise RuntimeError(f"parameters outside G and D: {sorted(rest)}")
-    trainer = AcganTrainer(gen_fn, disc_fn, tcfg)
-    state = trainer.init_state(gparams, dparams)
     data = load_arrays(cfg.DATA_DIR or None, n_examples=cfg.n_examples)
+    if mesh is None:
+        trainer = AcganTrainer(gen_fn, disc_fn, tcfg)
+        state, specs, rank, world = trainer.init_state(gparams, dparams), None, 0, 1
+    else:
+        trainer, state, specs = data_parallel(mesh, AcganTrainer, gen_fn, disc_fn, tcfg, gparams, dparams)
+        rank, world = mesh.rank, mesh.world
     sampler = DeviceSampler(list(data["train"]), cfg.BATCH_SIZE, cfg.N_CRITIC, seed=cfg.seed,
-                            device=device)
-    rand = Randomness(cfg.seed, device, cuda_dropout=cfg.CUDA_DROPOUT)
-    return Flagship(trainer, state, sampler, rand, data)
+                            device=device, rank=rank, world=world)
+    rand = Randomness(cfg.seed, device, cuda_dropout=cfg.CUDA_DROPOUT, rank=rank, world=world)
+    eval_trainer = trainer if mesh is None else AcganTrainer(gen_fn, disc_fn, tcfg)
+    return Flagship(trainer, state, sampler, rand, data, mesh, specs, eval_trainer)
 
 
 def make_step_fn(flagship: Flagship):
@@ -173,8 +202,11 @@ def make_test_fn(cfg: Config, flagship: Flagship, scorer, out_dir: str):
     """The JAX app's ``test_fn(state, iteration) -> metrics``: dev cost on
     the first ``BATCH_SIZE * 10`` test images in one call, the fixed
     100-sample grid, and on the inception cadence IS and FID.  Each part
-    draws from its own fixed seed, as the JAX app uses fixed keys."""
-    trainer, device = flagship.trainer, flagship.rand.device
+    draws from its own fixed seed, as the JAX app uses fixed keys.  Over a
+    mesh every rank gathers the full parameters and rank 0 evaluates with
+    the one-device trainer while the others wait; they return no
+    metrics."""
+    trainer, device = flagship.eval_trainer or flagship.trainer, flagship.rand.device
     dev_images, dev_labels = flagship.data["test"]
     n_dev = cfg.BATCH_SIZE * 10
     dev_x = torch.from_numpy(dev_images[:n_dev]).to(device)
@@ -205,7 +237,29 @@ def make_test_fn(cfg: Config, flagship: Flagship, scorer, out_dir: str):
             metrics["fid_10k"] = scorer.fid(real_sub, all_samples[: len(real_sub)])
         return metrics
 
-    return test_fn
+    mesh, specs = flagship.mesh, flagship.specs
+    if mesh is None:
+        return test_fn
+
+    def test_on_rank0(state, iteration: int) -> dict:
+        full = dataclasses.replace(state, gen_params=fetch_full_params(state.gen_params, mesh, specs["gen_params"]),
+                                   disc_params=fetch_full_params(state.disc_params, mesh, specs["disc_params"]))
+        metrics = test_fn(full, iteration) if mesh.rank == 0 else {}
+        mesh.barrier()
+        return metrics
+
+    return test_on_rank0
+
+
+def state_io(flagship: Flagship, device) -> tuple:
+    """``(to_blob, from_blob)`` of the train loop: the JAX layout, and over
+    a mesh the full leaves gathered (every rank) and each rank's shards of a
+    loaded state."""
+    mesh, specs = flagship.mesh, flagship.specs
+    if mesh is None:
+        return state_to_jax, lambda blob: state_from_jax(blob, device)
+    return (lambda state: state_to_jax(fetch_full_state(state, mesh, specs)),
+            lambda blob: shard_state(state_from_jax(blob, device), mesh, specs))
 
 
 def main(argv=None, cfg: Config | None = None, device="cuda"):
@@ -214,12 +268,19 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     the records printed by this process."""
     cfg = cfg or parse_config(argv)
     device = require_device(device)
-    out_dir = setup_out_dir(cfg)
-    flagship = setup(cfg, device)
-    print(format_param_table(flagship.state.gen_params, "G Params"))
-    print(format_param_table(flagship.state.disc_params, "D Params"))
-    print(f"device {device}, out_dir {out_dir}")
-    scorer = pick_scorer(3, 32, out_dir, train_data=flagship.data["train"], device=device)
+    mesh = common.maybe_mesh(model_axis=cfg.MODEL_AXIS, device=device)
+    device = mesh.device if mesh is not None else device
+    main_rank = is_main(mesh)
+    out_dir = setup_out_dir(cfg) if main_rank else cfg.out_dir
+    flagship = setup(cfg, device, mesh)
+    if main_rank:
+        print(format_param_table(flagship.state.gen_params, "G Params"))
+        print(format_param_table(flagship.state.disc_params, "D Params"))
+        print(f"device {device}, out_dir {out_dir}")
+        if mesh is not None:
+            print(f"mesh: data {mesh.data} x model {mesh.model} over {mesh.backend}, "
+                  f"{cfg.BATCH_SIZE // mesh.world} rows of each batch per rank (shapes above: rank 0's storage)")
+    scorer = pick_scorer(3, 32, out_dir, train_data=flagship.data["train"], device=device) if main_rank else None
     test_fn = make_test_fn(cfg, flagship, scorer, out_dir)
 
     counter = {"i": 0}
@@ -233,12 +294,13 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
         iters=cfg.ITERS, print_every=100, test_every=cfg.sample_every, save_every=cfg.save_every,
         ckpt_dir=f"{out_dir}/ckpt", allow_fresh_start=cfg.allow_fresh_start, keep_checkpoints=5,
     )
-    logger = MetricLogger(out_dir)
+    logger = MetricLogger(out_dir, quiet=not main_rank)
+    to_blob, from_blob = state_io(flagship, device)
     state = train_loop(
         flagship.state, make_step_fn(flagship), next_batch, flagship.rand, lcfg, logger=logger, test_fn=test_fn,
         data_state=lambda: {"i": counter["i"]},
         set_data_state=lambda s: counter.update(i=int(s["i"])),
-        to_blob=state_to_jax, from_blob=lambda blob: state_from_jax(blob, device),
+        to_blob=to_blob, from_blob=from_blob, mesh=mesh,
     )
     return state, logger.records
 

@@ -39,6 +39,17 @@ width, batch or precision is refused.
 
     python -m ctgan_tpu_torch.apps.generate --batch 1024 --aot_save flagship_b1024.pt2
     python -m ctgan_tpu_torch.apps.generate --ckpt ... --batch 1024 --aot flagship_b1024.pt2 --serve_iters 50
+
+Several processes (``torchrun``, one per GPU; ``common.maybe_mesh``), as the
+JAX app shards each request's batch over its mesh
+(``ctgan_tpu/apps/generate.py:136-155``): G's weights are replicated, each
+rank makes its rows of every request of ``--batch`` (its rows of the
+one-process draws, G's batch norms over the whole request), the samples are
+gathered on rank 0, which alone writes them, and ``--serve_iters``'
+images/s is the sum over the ranks.  ``--aot``/``--aot_save`` are
+single-device and refused there.
+
+    torchrun --nproc_per_node 2 -m ctgan_tpu_torch generate --batch 1024 --serve_iters 20
 """
 
 from __future__ import annotations
@@ -53,9 +64,11 @@ import torch
 from ..bridge import from_jax_params
 from ..core import Randomness, precision_policy, split_params
 from ..models import dcgan, good64, lsun128, resnet_cifar
+from ..ops.norm import batch_group
+from ..parallel.collectives import all_gather_cat
 from ..utils.aot import load_aot, save_aot
 from ..utils.checkpoint import load_checkpoint
-from .common import parse_config, require_device, save_sample_grid
+from .common import is_main, maybe_mesh, parse_config, require_device, save_sample_grid
 
 __all__ = ["Config", "load_gen_params", "main"]
 
@@ -148,24 +161,32 @@ def _forward(cfg: Config):
     return forward
 
 
-def _draws(cfg: Config, n: int, seed: int, device) -> tuple[torch.Tensor, ...]:
+def _draws(cfg: Config, n: int, seed: int, device, mesh=None) -> tuple[torch.Tensor, ...]:
     """A request's draws from ``seed``: ``(noise,)``, or for
-    ``cifar_resnet`` ``(noise, labels)``, the labels drawn first."""
-    rand = Randomness(seed, device)
+    ``cifar_resnet`` ``(noise, labels)``, the labels drawn first.  Over a
+    ``mesh``, this rank's ``n`` rows of the draws of ``n * world``."""
+    rand = Randomness(seed, device) if mesh is None else Randomness(seed, device, rank=mesh.rank, world=mesh.world)
     if cfg.model == "cifar_resnet":
         labels = rand.labels(n, resnet_cifar.ResnetCifarConfig().n_labels)
         return rand.noise(n, resnet_cifar.NOISE_DIM), labels
     return (rand.noise(n, resnet_cifar.NOISE_DIM),)
 
 
-def _sampler(cfg: Config, params: dict, device):
+def _sampler(cfg: Config, params: dict, device, mesh=None):
     """``call(n, seed) -> [n, C*H*W]`` images (bf16 under ``--bf16``),
-    noise (and labels) drawn from ``seed``."""
+    noise (and labels) drawn from ``seed``.  Over a ``mesh``: this rank's
+    ``n / world`` rows of the request of ``n``, G's batch norms over the
+    mesh."""
     forward = _forward(cfg)
 
     @torch.no_grad()
     def call(n: int, seed: int) -> torch.Tensor:
-        return forward(params, *_draws(cfg, n, seed, device))
+        if mesh is None:
+            return forward(params, *_draws(cfg, n, seed, device))
+        if n % mesh.world:
+            raise SystemExit(f"a request of {n} does not split over the {mesh.world} processes")
+        with batch_group(mesh.world_group):
+            return forward(params, *_draws(cfg, n // mesh.world, seed, device, mesh))
 
     return call
 
@@ -212,11 +233,13 @@ def _aot_sampler(cfg: Config, params: dict, device):
     return call, meta
 
 
-def _serve_bench(cfg: Config, request, device, *, aot_meta: dict | None = None) -> dict:
+def _serve_bench(cfg: Config, request, device, *, aot_meta: dict | None = None, mesh=None) -> dict:
     """``serve_iters`` requests of ``batch`` images (``request(seed)``)
     queued back to back and timed with CUDA events (device time per batch),
     after two warm-up requests; then one request timed on the host clock,
-    synchronised.  ``aot_meta``: the requests run a loaded artifact."""
+    synchronised.  ``aot_meta``: the requests run a loaded artifact.  Over
+    a ``mesh`` each rank times its rows of every request; ``value`` is the
+    sum of the ranks' images/s, printed by rank 0."""
     if device.type != "cuda":
         raise RuntimeError("--serve_iters measures the card: it needs a CUDA device")
     k = max(cfg.serve_iters, 10)
@@ -236,9 +259,13 @@ def _serve_bench(cfg: Config, request, device, *, aot_meta: dict | None = None) 
     request(cfg.seed + 7)
     torch.cuda.synchronize()
     latency_s = time.perf_counter() - t0
+    world = 1 if mesh is None else mesh.world
+    images_per_s = torch.tensor([cfg.batch / world / sec_per_batch], dtype=torch.float64, device=device)
+    if mesh is not None:
+        torch.distributed.all_reduce(images_per_s, group=mesh.world_group)
     result = {
         "metric": f"{cfg.model}_gen_samples_per_sec_per_chip",
-        "value": round(cfg.batch / sec_per_batch, 2),
+        "value": round(float(images_per_s), 2),
         "unit": "images/sec/chip",
         "vs_baseline": None,
         "batch": cfg.batch,
@@ -252,9 +279,10 @@ def _serve_bench(cfg: Config, request, device, *, aot_meta: dict | None = None) 
         "params": "checkpoint" if cfg.ckpt else "fresh-init (identical compute)",
         "bf16": cfg.bf16,
         "device": torch.cuda.get_device_name(device),
-        "n_devices": 1,
+        "n_devices": world,
     }
-    print(json.dumps(result))
+    if is_main(mesh):
+        print(json.dumps(result))
     return result
 
 
@@ -265,6 +293,14 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
     cfg = cfg or parse_config(Config, argv)
     _check_supported(cfg)
     device = require_device(device)
+    mesh = maybe_mesh(device=device)
+    if mesh is not None:
+        device = mesh.device
+        if cfg.aot or cfg.aot_save:
+            raise SystemExit("AOT serving artifacts are single-device; multi-chip "
+                             "serving runs G eagerly, each process its rows of every request")
+        if cfg.batch % mesh.world:
+            raise SystemExit(f"--batch {cfg.batch} must divide over the {mesh.world} processes")
     if cfg.aot_save:
         return _aot_save(cfg, _gen_params(cfg, device), device)
     if cfg.serve_iters > 0:
@@ -272,8 +308,8 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
         if cfg.aot:
             call, meta = _aot_sampler(cfg, params, device)
             return _serve_bench(cfg, call, device, aot_meta=meta)
-        eager = _sampler(cfg, params, device)
-        return _serve_bench(cfg, lambda seed: eager(cfg.batch, seed), device)
+        eager = _sampler(cfg, params, device, mesh)
+        return _serve_bench(cfg, lambda seed: eager(cfg.batch, seed), device, mesh=mesh)
     if not cfg.ckpt:
         raise SystemExit("--ckpt required")
     params = _gen_params(cfg, device)
@@ -284,9 +320,15 @@ def main(argv=None, cfg: Config | None = None, device="cuda"):
         print(f"aot: loaded {cfg.aot} in {meta['load_sec']}s")
         outs = [call(seed)[: cfg.n - i].float().cpu() for i, seed in seeds]
     else:
-        eager = _sampler(cfg, params, device)
-        outs = [eager(min(cfg.batch, cfg.n - i), seed).float().cpu() for i, seed in seeds]
+        eager = _sampler(cfg, params, device, mesh)
+        outs = [eager(min(cfg.batch, cfg.n - i), seed).float() for i, seed in seeds]
+        if mesh is not None:
+            # each rank's rows of every request, in rank order: the one-process request
+            outs = [all_gather_cat(out, 0, mesh.world_group, mesh.world) for out in outs]
+        outs = [out.cpu() for out in outs]
     samples = torch.cat(outs)[: cfg.n].numpy()
+    if not is_main(mesh):
+        return samples
     grid_path = f"{cfg.out_prefix}.png"
     save_sample_grid(samples[: min(cfg.n, 100)], _SHAPES[cfg.model], grid_path, value_range=_value_range(cfg))
     print(f"wrote {grid_path} ({min(cfg.n, 100)} samples)")

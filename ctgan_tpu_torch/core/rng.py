@@ -33,19 +33,34 @@ Each provider draws its Philox seeds up front into a *seed table* of
 reads slot k.  The kernels read the seed from the table, so a graph captured
 against the static buffer's table draws a step's masks and noise once that
 step's table is copied in.
+
+A rank's rows.  In a data-parallel run (``parallel``) each of ``world``
+processes trains on its rows of the global batch, and a provider made with
+``rank`` and ``world`` hands out the rank's rows of the draws the
+one-process run makes: a host draw is drawn at its global shape (``world``
+times the rows, from the same generator) and sliced; a Philox draw (a mask,
+the dequantisation noise) launches the kernels on the rank's *row segments*
+of the global tensor.  A pass whose global batch is ``k`` blocks, each
+split over the ranks (the fused CT pass ``[real; fake; real; fake]``: 4),
+runs under :meth:`Randomness.rows`; every other draw is one block.  The seed
+table is the same on every rank.  With ``world`` 1 every draw is whole, as
+before.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from ..kernels.dropout import dropout_mask_reference, philox_uniform, seed_table
+from ..kernels.dropout import dropout_mask_reference, philox_uniform, seed_table, whole
 from ..ops.dropout import make_mask
 
-__all__ = ["Randomness", "SEED_SLOTS", "StaticRandomness", "derive_seed", "host_to_device"]
+__all__ = ["Randomness", "SEED_SLOTS", "StaticRandomness", "derive_seed", "host_to_device", "pass_rows",
+           "row_segments"]
 
 # Philox draws a provider can hand out.  A flagship iteration takes 38 (33
 # masks and 5 dequantisation draws), its dev cost 7; a 64 px iteration 63
@@ -69,6 +84,47 @@ def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def row_segments(shape, rank: int, world: int, blocks: int = 1) -> list[tuple[int, int]]:
+    """The ``(start, count)`` element ranges of the global tensor that rank
+    ``rank`` of ``world`` holds as its local ``shape``, for a pass of
+    ``blocks`` equal blocks each split over the ranks by rows; adjacent
+    ranges merged (``world`` 1: the whole tensor, one range)."""
+    n, row = shape[0], math.prod(shape[1:])
+    if n % blocks:
+        raise ValueError(f"{n} rows do not split into {blocks} blocks")
+    m = n // blocks
+    segs: list[list[int]] = []
+    for b in range(blocks):
+        start = (b * m * world + rank * m) * row
+        if segs and segs[-1][0] + segs[-1][1] == start:
+            segs[-1][1] += m * row
+        else:
+            segs.append([start, m * row])
+    return [(a, c) for a, c in segs]
+
+
+def pass_rows(rand, blocks: int):
+    """``rand.rows(blocks)`` where the provider lays draws out by rows, else
+    nothing (a test's injected draws of one process)."""
+    rows = getattr(rand, "rows", None)
+    return rows(blocks) if rows is not None else contextlib.nullcontext()
+
+
+def _rank_rows(make: Callable, rank: int, world: int) -> Callable:
+    """The ``make`` of a host draw that fills ``out`` with rank ``rank``'s
+    rows of the draw ``make`` makes at ``world`` times the rows."""
+    if world == 1:
+        return make
+
+    def local(g, step, out):
+        n = out.shape[0]
+        full = torch.empty((n * world, *out.shape[1:]), dtype=out.dtype)
+        make(g, step, full)
+        out.copy_(full[rank * n:(rank + 1) * n])
+
+    return local
 
 
 def _seed_values(seed: int) -> np.ndarray:
@@ -95,9 +151,11 @@ class Randomness:
       ``device``); each Philox draw takes the next slot, and one past the
       last raises.  ``cuda_dropout=False`` makes masks with the plain
       version on any device.
+    * ``rank`` and ``world``: the rank's rows of each draw (the module's
+      docstring).
     """
 
-    def __init__(self, seed: int, device, *, cuda_dropout: bool = True):
+    def __init__(self, seed: int, device, *, cuda_dropout: bool = True, rank: int = 0, world: int = 1):
         self.seed = seed
         self.device = torch.device(device)
         self._gen = torch.Generator()
@@ -106,18 +164,49 @@ class Randomness:
         self.seeds = self._to(seed_table(self.seed_values))
         self._slot = 0
         self._cuda_dropout = cuda_dropout
+        self.rank, self.world, self._blocks = rank, world, 1
 
     def for_step(self, step: int) -> "Randomness":
         """A fresh provider for training step ``step``, seeded from
         ``(seed, step)``."""
-        return Randomness(derive_seed(self.seed, step), self.device, cuda_dropout=self._cuda_dropout)
+        return Randomness(derive_seed(self.seed, step), self.device, cuda_dropout=self._cuda_dropout,
+                          rank=self.rank, world=self.world)
+
+    def for_rank(self, index: int) -> "Randomness":
+        """A provider of draws of its own for device ``index`` of a mesh
+        (``parallel.make_spmd_trainer``'s per-device draws), whole on each
+        device, seeded from ``(seed, 2**40 + index)``."""
+        return Randomness(derive_seed(self.seed, (1 << 40) + index), self.device, cuda_dropout=self._cuda_dropout)
+
+    @contextlib.contextmanager
+    def rows(self, blocks: int):
+        """Draws inside are of a pass whose global batch is ``blocks`` equal
+        blocks, each split over the ranks by rows."""
+        before, self._blocks = self._blocks, blocks
+        try:
+            yield self
+        finally:
+            self._blocks = before
+
+    def _rows_kw(self, shape) -> dict:
+        """The kernels' ``segments`` argument for a draw of local ``shape``:
+        the rank's element ranges of the global draw, none for a whole
+        draw."""
+        segments = row_segments(tuple(shape), self.rank, self.world, self._blocks)
+        return {} if whole(segments, math.prod(shape)) else {"segments": segments}
 
     def _to(self, t: torch.Tensor) -> torch.Tensor:
         return host_to_device(t, self.device)
 
     def _host(self, kind: str, shape: tuple, dtype: torch.dtype, make: Callable) -> torch.Tensor:
         """A host draw of ``shape`` and ``dtype``: ``make(generator, step,
-        out)`` fills ``out`` (straight into pinned memory on the card)."""
+        out)`` fills ``out`` from its shape; the rank's rows of the draw at
+        ``world`` times the rows."""
+        return self._draw(kind, tuple(shape), dtype, _rank_rows(make, self.rank, self.world))
+
+    def _draw(self, kind: str, shape: tuple, dtype: torch.dtype, make: Callable) -> torch.Tensor:
+        """``make`` filling a host tensor of ``shape`` (straight into pinned
+        memory on the card), moved to the device."""
         pinned = self.device.type == "cuda" and torch.cuda.is_available()
         out = torch.empty(shape, dtype=dtype, pin_memory=pinned)
         make(self._gen, None, out)
@@ -133,41 +222,43 @@ class Randomness:
 
     def noise(self, n: int, dim: int) -> torch.Tensor:
         return self._host("noise", (n, dim), torch.float32,
-                          lambda g, s, out: torch.randn(n, dim, generator=g, out=out))
+                          lambda g, s, out: torch.randn(out.shape, generator=g, out=out))
 
     def normal(self, shape) -> torch.Tensor:
         """Standard normals of ``shape`` (``ops.noise.gaussian_noise``)."""
-        shape = tuple(shape)
-        return self._host("normal", shape, torch.float32, lambda g, s, out: torch.randn(shape, generator=g, out=out))
+        return self._host("normal", tuple(shape), torch.float32,
+                          lambda g, s, out: torch.randn(out.shape, generator=g, out=out))
 
     def uniform(self, n: int, dim: int) -> torch.Tensor:
         """U[0, 1) latents, ``[n, dim]`` (the semi-supervised generators)."""
         return self._host("uniform", (n, dim), torch.float32,
-                          lambda g, s, out: torch.rand(n, dim, generator=g, out=out))
+                          lambda g, s, out: torch.rand(out.shape, generator=g, out=out))
 
     def labels(self, n: int, n_labels: int) -> torch.Tensor:
         return self._host("labels", (n,), torch.int64,
-                          lambda g, s, out: torch.randint(0, n_labels, (n,), generator=g, out=out))
+                          lambda g, s, out: torch.randint(0, n_labels, out.shape, generator=g, out=out))
 
     def dequant(self, shape) -> torch.Tensor:
         """U[0, 1/128) added to the rescaled uint8 reals."""
-        return philox_uniform(self.seeds, tuple(shape), 1.0 / 128, self.device, slot=self.take_slot())
+        return philox_uniform(self.seeds, tuple(shape), 1.0 / 128, self.device, slot=self.take_slot(),
+                              **self._rows_kw(shape))
 
     def gp_alpha(self, n: int) -> torch.Tensor:
         """One interpolation weight per example, ``[n, 1]``."""
-        return self._host("gp_alpha", (n, 1), torch.float32, lambda g, s, out: torch.rand(n, 1, generator=g, out=out))
+        return self._host("gp_alpha", (n, 1), torch.float32,
+                          lambda g, s, out: torch.rand(out.shape, generator=g, out=out))
 
     def flip(self, n: int) -> torch.Tensor:
         """Whether to flip each of ``n`` images left to right, each with
         probability 1/2 (``ctgan_tpu/data/augment.py:22-30``)."""
         return self._host("flip", (n,), torch.bool,
-                          lambda g, s, out: torch.lt(torch.rand(n, generator=g), 0.5, out=out))
+                          lambda g, s, out: torch.lt(torch.rand(out.shape, generator=g), 0.5, out=out))
 
     def crop_offsets(self, n: int, pad: int) -> torch.Tensor:
         """``[n, 2]`` (row, column) crop offsets, each uniform over
         ``[0, 2 * pad]`` (``ctgan_tpu/data/augment.py:33-56``)."""
         return self._host("crop_offsets", (n, 2), torch.int64,
-                          lambda g, s, out: torch.randint(0, 2 * pad + 1, (n, 2), generator=g, out=out))
+                          lambda g, s, out: torch.randint(0, 2 * pad + 1, out.shape, generator=g, out=out))
 
     def from_host(self, fn: Callable[[int], object], step: int) -> torch.Tensor:
         """``fn(step)`` (an array or tensor the host computes for ``step``)
@@ -178,10 +269,10 @@ class Randomness:
         return self._to(torch.as_tensor(fn(step)))
 
     def dropout_mask(self, shape, keep_prob, dtype: torch.dtype, device) -> torch.Tensor:
-        slot = self.take_slot()
+        slot, rows = self.take_slot(), self._rows_kw(shape)
         if self._cuda_dropout:
-            return make_mask(self.seeds, shape, keep_prob, dtype, device, slot=slot)
-        return dropout_mask_reference(int(self.seed_values[slot]), shape, keep_prob, dtype, device)
+            return make_mask(self.seeds, shape, keep_prob, dtype, device, slot=slot, **rows)
+        return dropout_mask_reference(int(self.seed_values[slot]), shape, keep_prob, dtype, device, **rows)
 
 
 class _Entry(NamedTuple):
@@ -217,13 +308,13 @@ class _Recorder(Randomness):
     """``Randomness`` of one step that records its host draws and values in
     order (an eager warm-up step of a captured run)."""
 
-    def __init__(self, seed: int, device, *, cuda_dropout: bool, step: int):
-        super().__init__(seed, device, cuda_dropout=cuda_dropout)
+    def __init__(self, seed: int, device, *, cuda_dropout: bool, step: int, rank: int = 0, world: int = 1):
+        super().__init__(seed, device, cuda_dropout=cuda_dropout, rank=rank, world=world)
         self.step, self.entries = step, []
 
-    def _host(self, kind, shape, dtype, make):
+    def _draw(self, kind, shape, dtype, make):
         self.entries.append(_Entry(kind, tuple(shape), dtype, make))
-        return super()._host(kind, shape, dtype, make)
+        return super()._draw(kind, shape, dtype, make)
 
     def from_host(self, fn, step):
         value = torch.as_tensor(fn(step))
@@ -241,6 +332,7 @@ class _Views(Randomness):
         self.seed, self.device, self._cuda_dropout = provider.seed, provider.device, provider.cuda_dropout
         self.seeds, self.seed_values = provider.view(provider.seed_entry), None
         self._provider, self._slot, self.used = provider, 0, 0
+        self.rank, self.world, self._blocks = provider.rank, provider.world, 1
 
     def _next(self, kind: str, shape=None, dtype=None) -> torch.Tensor:
         program = self._provider.program
@@ -251,7 +343,7 @@ class _Views(Randomness):
         self.used += 1
         return self._provider.view(entry)
 
-    def _host(self, kind, shape, dtype, make):
+    def _draw(self, kind, shape, dtype, make):
         return self._next(kind, tuple(shape), dtype)
 
     def from_host(self, fn, step):
@@ -261,7 +353,8 @@ class _Views(Randomness):
         if self._cuda_dropout:
             return super().dropout_mask(shape, keep_prob, dtype, device)
         # the plain version reads the seed from the device table: the same bits, and capturable
-        return dropout_mask_reference(self.seeds, shape, keep_prob, dtype, device, slot=self.take_slot())
+        return dropout_mask_reference(self.seeds, shape, keep_prob, dtype, device, slot=self.take_slot(),
+                                      **self._rows_kw(shape))
 
 
 class StaticRandomness:
@@ -279,10 +372,12 @@ class StaticRandomness:
     it to the device buffer.  Then ``for_step(s)`` hands out views of the
     device buffer in the recorded order, and raises where the step asks for
     other draws.  Inputs that already lie on the device are copied into
-    static device tensors instead."""
+    static device tensors instead.  ``rank`` and ``world`` as for
+    :class:`Randomness`: a recorded host draw keeps the rank's rows."""
 
-    def __init__(self, seed: int, device, *, cuda_dropout: bool = True):
+    def __init__(self, seed: int, device, *, cuda_dropout: bool = True, rank: int = 0, world: int = 1):
         self.seed, self.device, self.cuda_dropout = seed, torch.device(device), cuda_dropout
+        self.rank, self.world = rank, world
         self.program: list[_Entry] | None = None
         self.recorder: _Recorder | None = None
         self.views: _Views | None = None
@@ -301,7 +396,7 @@ class StaticRandomness:
     def for_step(self, step: int) -> Randomness:
         if self.program is None:
             self.recorder = _Recorder(derive_seed(self.seed, step), self.device, cuda_dropout=self.cuda_dropout,
-                                      step=step)
+                                      step=step, rank=self.rank, world=self.world)
             return self.recorder
         if step != self.filled_step:
             raise RuntimeError(f"the static buffer holds step {self.filled_step}'s draws, not step {step}'s")

@@ -69,6 +69,16 @@
 // bound by bytes; the uniforms add a conversion and two multiplies per
 // element to the same integer work.
 //
+// Row segments (ctgan_dropout_mask_segments, ctgan_philox_uniform_segments):
+// a process of a data-parallel run draws only its rows of the global draw,
+// up to four (start, count) element ranges of it, written one after another;
+// element j of a segment takes exactly the bits of element start + j of the
+// whole draw, so the ranks' draws together are the one-process draw.  A
+// segment whose start and local offset are multiples of 8 runs the loop
+// above with its counters moved by start / 4; any other segment a plain
+// element loop.  The one-segment entries above are unchanged: a whole draw
+// launches them.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libdropout_mask.so dropout_mask.cu
 
@@ -185,39 +195,43 @@ struct Uniform {
 // Philox blocks.  4-byte elements: groups 64 w + l and 64 w + l + 32, each
 // a 16-byte store, so a warp's store covers 512 contiguous bytes.  2-byte
 // elements: groups 2t and 2t + 1, one 16-byte store.
+// Group g of the output takes the Philox block of counter g + base: base is
+// 0 for a whole draw, and a segment's first global group for a segment.
 template <typename Out, typename Op>
-__device__ __forceinline__ void wide_step(Out* out, uint32_t t, const PhiloxKey& key, const Op& op) {
+__device__ __forceinline__ void wide_step(Out* out, uint32_t t, uint32_t base, const PhiloxKey& key,
+                                          const Op& op) {
   const uint32_t g = 2 * t - (t & 31u);
   Out* o = out + g;
-  o[0] = op.group(philox(g, key));
-  o[32] = op.group(philox(g + 32, key));
+  o[0] = op.group(philox(g + base, key));
+  o[32] = op.group(philox(g + 32 + base, key));
 }
 
-__device__ __forceinline__ void narrow_step(uint16_t* out, uint32_t t, const PhiloxKey& key,
+__device__ __forceinline__ void narrow_step(uint16_t* out, uint32_t t, uint32_t base, const PhiloxKey& key,
                                             const Bf16Mask& op) {
-  const uint2 a = op.group(philox(2 * t, key)), b = op.group(philox(2 * t + 1, key));
+  const uint2 a = op.group(philox(2 * t + base, key)), b = op.group(philox(2 * t + 1 + base, key));
   reinterpret_cast<uint4*>(out)[t] = make_uint4(a.x, a.y, b.x, b.y);
 }
 
-// The whole kernel for one output type: the seed read once from the table,
-// whole warp spans in a grid-stride loop, then the tail.
+// The whole kernel for one output type: whole warp spans in a grid-stride
+// loop, then the tail.  Output group g takes the Philox block of counter
+// g + base (the one-segment kernels pass the literal 0, which folds away).
 template <typename T, typename Op>
-__device__ __forceinline__ void draw(T* __restrict__ out, int64_t n, uint32_t seed, const Op& op) {
-  const PhiloxKey key = philox_key(seed);
+__device__ __forceinline__ void draw(T* __restrict__ out, int64_t n, const PhiloxKey& key, const Op& op,
+                                     uint32_t base) {
   const uint32_t spans = static_cast<uint32_t>(n / kSpan);
   const uint32_t steps = 32 * spans;
   const uint32_t first = blockIdx.x * kThreads + threadIdx.x;
 #pragma unroll 1
   for (uint32_t t = first; t < steps; t += gridDim.x * kThreads) {
     if constexpr (sizeof(T) == 4) {
-      wide_step(reinterpret_cast<decltype(op.group(uint4{}))*>(out), t, key, op);
+      wide_step(reinterpret_cast<decltype(op.group(uint4{}))*>(out), t, base, key, op);
     } else {
-      narrow_step(out, t, key, op);
+      narrow_step(out, t, base, key, op);
     }
   }
   const uint32_t g = kSpanGroups * spans + first;  // the tail's groups, one per thread
   if (first < kSpanGroups && int64_t{4} * g < n) {
-    const uint4 r = philox(g, key);
+    const uint4 r = philox(g + base, key);
     const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -232,18 +246,110 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dropout_mask_kernel(T* __restrict__ out, int64_t n, const uint32_t* __restrict__ seeds, int slot,
                         uint32_t thresh, float scale) {
+  const PhiloxKey key = philox_key(seeds[slot]);
   if constexpr (sizeof(T) == 4) {
-    draw(out, n, seeds[slot], Fp32Mask{thresh, __float_as_uint(scale)});
+    draw(out, n, key, Fp32Mask{thresh, __float_as_uint(scale)}, 0u);
   } else {
     const uint32_t value = __bfloat16_as_ushort(__float2bfloat16(scale));
-    draw(out, n, seeds[slot], Bf16Mask{thresh, value});
+    draw(out, n, key, Bf16Mask{thresh, value}, 0u);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
     philox_uniform_kernel(float* __restrict__ out, int64_t n, const uint32_t* __restrict__ seeds, int slot,
                           float scale) {
-  draw(out, n, seeds[slot], Uniform{scale});
+  draw(out, n, philox_key(seeds[slot]), Uniform{scale}, 0u);
+}
+
+// Row segments: a rank's rows of a global draw.  Segment s is the global
+// elements [start[s], start[s] + count[s]), written at offset[s] of the
+// local output, one segment after another; element j of segment s takes the
+// bits that element start[s] + j takes in the whole draw.  Passed by value,
+// so a captured graph keeps the layout with the launch.
+constexpr int kMaxSegments = 4;
+
+struct Segments {
+  int64_t start[kMaxSegments];
+  int64_t count[kMaxSegments];
+  int64_t offset[kMaxSegments];
+  int n;
+};
+
+// A segment whose start is not a multiple of 8 elements, or whose local
+// offset is not (16-byte stores), element by element: each thread one
+// Philox block of the groups the segment touches, its first and last block
+// only partly used.
+template <typename T, typename Op>
+__device__ __forceinline__ void draw_ragged(T* __restrict__ out, int64_t start, int64_t n, const PhiloxKey& key,
+                                            const Op& op) {
+  const int64_t end = start + n;
+  const uint32_t first = static_cast<uint32_t>(start / 4), last = static_cast<uint32_t>((end + 3) / 4);
+#pragma unroll 1
+  for (uint32_t g = first + blockIdx.x * kThreads + threadIdx.x; g < last; g += gridDim.x * kThreads) {
+    const uint4 r = philox(g, key);
+    const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t e = int64_t{4} * g + j;
+      if (e >= start && e < end) out[e - start] = op.element(bits[j]);
+    }
+  }
+}
+
+// The segment of this block row: its global start, count and local offset,
+// read with constant indices (a kernel parameter indexed at run time, or
+// taken by address, is copied to the stack).
+struct Segment {
+  int64_t start, count, offset;
+};
+
+template <int S>
+__device__ __forceinline__ Segment segment_at(const Segments& seg) {
+  return Segment{seg.start[S], seg.count[S], seg.offset[S]};
+}
+
+__device__ __forceinline__ Segment segment_of_block(const Segments& seg) {
+  static_assert(kMaxSegments == 4, "one branch per segment");
+  switch (blockIdx.y) {
+    case 0: return segment_at<0>(seg);
+    case 1: return segment_at<1>(seg);
+    case 2: return segment_at<2>(seg);
+    default: return segment_at<3>(seg);
+  }
+}
+
+// Where the segment's start and offset are multiples of 8 elements (every
+// flagship shape: a row is C*H*W elements) it runs the one-segment loop,
+// 16-byte stores and two Philox blocks per thread step, with the counters
+// moved by start / 4.
+template <typename T, typename Op>
+__device__ __forceinline__ void draw_segment(T* __restrict__ out, Segment s, const PhiloxKey& key, const Op& op) {
+  T* o = out + s.offset;
+  if (((s.start | s.offset) & 7) == 0) {
+    draw(o, s.count, key, op, static_cast<uint32_t>(s.start / 4));
+  } else {
+    draw_ragged(o, s.start, s.count, key, op);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dropout_mask_segments_kernel(T* __restrict__ out, const Segments seg, const uint32_t* __restrict__ seeds,
+                                 int slot, uint32_t thresh, float scale) {
+  const PhiloxKey key = philox_key(seeds[slot]);
+  const Segment s = segment_of_block(seg);
+  if constexpr (sizeof(T) == 4) {
+    draw_segment(out, s, key, Fp32Mask{thresh, __float_as_uint(scale)});
+  } else {
+    const uint32_t value = __bfloat16_as_ushort(__float2bfloat16(scale));
+    draw_segment(out, s, key, Bf16Mask{thresh, value});
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    philox_uniform_segments_kernel(float* __restrict__ out, const Segments seg, const uint32_t* __restrict__ seeds,
+                                   int slot, float scale) {
+  draw_segment(out, segment_of_block(seg), philox_key(seeds[slot]), Uniform{scale});
 }
 
 // Blocks for n elements: enough to cover them, at most `waves` times what
@@ -313,5 +419,75 @@ extern "C" int ctgan_philox_uniform(float* out, int64_t n, const uint32_t* seeds
   if (rc) return rc;
   philox_uniform_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(out, n, seeds, slot,
                                                                                    scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// The segments checked and laid out one after another: 0 on success.
+int layout(const int64_t* starts, const int64_t* counts, int n_segments, Segments* seg, int64_t* largest) {
+  if (n_segments < 1 || n_segments > kMaxSegments) return static_cast<int>(cudaErrorInvalidValue);
+  seg->n = n_segments;
+  int64_t offset = 0;
+  *largest = 0;
+  for (int s = 0; s < kMaxSegments; ++s) {
+    const bool used = s < n_segments;
+    seg->start[s] = used ? starts[s] : 0;
+    seg->count[s] = used ? counts[s] : 0;
+    seg->offset[s] = used ? offset : 0;
+    if (used) {
+      if (starts[s] < 0 || counts[s] <= 0 || starts[s] + counts[s] >= kMaxElements) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      offset += counts[s];
+      if (counts[s] > *largest) *largest = counts[s];
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+// The row-segment forms: out holds the segments' elements one after another
+// (sum of counts), 16-byte aligned; starts[s] and counts[s] (host arrays of
+// n_segments <= 4) are global element ranges of the whole draw.  The rest as
+// above.  One launch, a grid row per segment.
+extern "C" int ctgan_dropout_mask_segments(void* out, const int64_t* starts, const int64_t* counts, int n_segments,
+                                           const uint32_t* seeds, int slot, uint32_t thresh, float scale,
+                                           int dtype, void* stream) {
+  Segments seg;
+  int64_t largest = 0;
+  int rc = layout(starts, counts, n_segments, &seg, &largest);
+  if (rc) return rc;
+  if (slot < 0 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned blocks = 0;
+  if (dtype == 0) {
+    rc = grid_blocks(dropout_mask_segments_kernel<uint32_t>, kByteBoundWaves, largest, &blocks);
+    if (rc) return rc;
+    dropout_mask_segments_kernel<uint32_t><<<dim3(blocks, n_segments), kThreads, 0, s>>>(
+        static_cast<uint32_t*>(out), seg, seeds, slot, thresh, scale);
+  } else {
+    rc = grid_blocks(dropout_mask_segments_kernel<uint16_t>, kOpBoundWaves, largest, &blocks);
+    if (rc) return rc;
+    dropout_mask_segments_kernel<uint16_t><<<dim3(blocks, n_segments), kThreads, 0, s>>>(
+        static_cast<uint16_t*>(out), seg, seeds, slot, thresh, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ctgan_philox_uniform_segments(float* out, const int64_t* starts, const int64_t* counts,
+                                             int n_segments, const uint32_t* seeds, int slot, float scale,
+                                             void* stream) {
+  Segments seg;
+  int64_t largest = 0;
+  int rc = layout(starts, counts, n_segments, &seg, &largest);
+  if (rc) return rc;
+  if (slot < 0) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned blocks = 0;
+  rc = grid_blocks(philox_uniform_segments_kernel, kByteBoundWaves, largest, &blocks);
+  if (rc) return rc;
+  philox_uniform_segments_kernel<<<dim3(blocks, n_segments), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, seg, seeds, slot, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,10 @@
   permutation, as ``[K, B, ...]`` stacks, so no data crosses from the host
   while training: only the iteration's indices (:meth:`~DeviceSampler.host_indices`,
   which a captured step copies into its static input buffer), gathered on
-  the device (:meth:`~DeviceSampler.gather`).
+  the device (:meth:`~DeviceSampler.gather`).  In a data-parallel run
+  (``rank``, ``world``) every rank draws the same global indices and
+  gathers its columns of the ``[K, B]`` index stack: its rows of each
+  batch, labels with them.
 """
 
 from __future__ import annotations
@@ -78,7 +81,15 @@ def stack_batches(it: Iterator, k: int):
 
 
 class DeviceSampler:
-    def __init__(self, arrays, batch_size: int, critic_iters: int = 1, seed: int = 0, device="cuda"):
+    """``batch_size`` is the global batch; ``rank`` of ``world`` gathers the
+    ``batch_size / world`` columns ``[rank * b, (rank + 1) * b)`` of each
+    iteration's ``[K, B]`` indices."""
+
+    def __init__(self, arrays, batch_size: int, critic_iters: int = 1, seed: int = 0, device="cuda", *,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"a batch of {batch_size} does not split over {world} ranks")
+        self.rank, self.world = rank, world
         self.device = torch.device(device)
         self.arrays = [torch.as_tensor(a).to(self.device) for a in arrays]
         self.n = int(self.arrays[0].shape[0])
@@ -126,8 +137,9 @@ class DeviceSampler:
         return self._slots(step, self._host_perm_cache[1])
 
     def gather(self, idx: torch.Tensor):
-        """``[K, B, ...]`` batches of every array at the ``K * B`` indices
-        ``idx``."""
-        idx = idx.to(self.device)
-        outs = [a[idx].reshape((self.k, self.batch_size) + tuple(a.shape[1:])) for a in self.arrays]
+        """``[K, B / world, ...]`` batches of every array at this rank's
+        columns of the ``K * B`` indices ``idx``."""
+        b = self.batch_size // self.world
+        idx = idx.to(self.device).reshape(self.k, self.batch_size)[:, self.rank * b:(self.rank + 1) * b]
+        outs = [a[idx] for a in self.arrays]
         return outs[0] if len(outs) == 1 else tuple(outs)

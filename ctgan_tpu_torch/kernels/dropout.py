@@ -28,6 +28,16 @@ the one multiply by ``scale``.  The trainer's dequantisation noise comes from
 it, so a run draws the same noise on the card as on the CPU
 (:func:`philox_uniform_reference`); it counts its launches in
 ``philox_uniform.launches``.
+
+Row segments.  Each function also takes ``segments``: at most
+``MAX_SEGMENTS`` ``(start, count)`` element ranges of a global draw, whose
+counts add up to the output's size.  The output holds them one after
+another, element ``j`` of a segment taking exactly the bits of element
+``start + j`` of the global draw: a process of a data-parallel run draws its
+rows of the one-process draw.  ``None``, or the one segment ``(0, n)``, is
+the whole draw and launches the one-segment kernel; any other layout
+launches the segment kernel, which each wrapper counts in
+``segment_launches`` as well as in ``launches``.
 """
 
 from __future__ import annotations
@@ -42,8 +52,8 @@ import torch
 from .build import load_library
 
 __all__ = [
-    "dropout_mask", "dropout_mask_reference", "keep_threshold", "philox4x32_10",
-    "philox_uniform", "philox_uniform_reference", "seed_table",
+    "MAX_SEGMENTS", "dropout_mask", "dropout_mask_reference", "keep_threshold", "philox4x32_10",
+    "philox_uniform", "philox_uniform_reference", "seed_table", "whole",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -51,6 +61,7 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ELEMENTS = 1 << 34  # the kernels count chunks and Philox counters in 32 bits
+MAX_SEGMENTS = 4  # row segments one launch takes (the fused CT pass: real, fake, real, fake)
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -127,21 +138,47 @@ def _check(keep_prob, dtype: torch.dtype) -> None:
         raise ValueError(f"keep_prob must lie in (0, 1], got {keep_prob}")
 
 
-def _bits(seed: int | torch.Tensor, n: int, device) -> torch.Tensor:
-    """The first ``n`` Philox words of ``seed`` (int64 holding uint32)."""
-    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
-    return philox4x32_10(groups, seed).reshape(-1)[:n]
+def whole(segments, n: int) -> bool:
+    """Whether ``segments`` is the whole draw of ``n`` elements."""
+    return segments is None or [tuple(s) for s in segments] == [(0, n)]
+
+
+def _check_segments(segments, n: int) -> list[tuple[int, int]]:
+    segs = [(int(a), int(c)) for a, c in segments]
+    if not 1 <= len(segs) <= MAX_SEGMENTS:
+        raise ValueError(f"1 to {MAX_SEGMENTS} segments, not {len(segs)}")
+    if any(a < 0 or c <= 0 or a + c >= _MAX_ELEMENTS for a, c in segs):
+        raise ValueError(f"segments {segs}: starts >= 0, counts > 0, ends below 2**34")
+    if sum(c for _, c in segs) != n:
+        raise ValueError(f"segments {segs} hold {sum(c for _, c in segs)} elements, the output {n}")
+    return segs
+
+
+def _bits(seed: int | torch.Tensor, n: int, device, segments=None) -> torch.Tensor:
+    """The first ``n`` Philox words of ``seed`` (int64 holding uint32), or
+    the words of ``segments``' global elements, one segment after
+    another."""
+    if whole(segments, n):
+        groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+        return philox4x32_10(groups, seed).reshape(-1)[:n]
+    parts = []
+    for start, count in _check_segments(segments, n):
+        groups = torch.arange(start // 4, (start + count + 3) // 4, dtype=torch.int64, device=device)
+        words = philox4x32_10(groups, seed).reshape(-1)
+        parts.append(words[start % 4:start % 4 + count])
+    return torch.cat(parts)
 
 
 def dropout_mask_reference(
-    seed, shape, keep_prob, dtype: torch.dtype = torch.float32, device="cpu", *, slot: int = 0
+    seed, shape, keep_prob, dtype: torch.dtype = torch.float32, device="cpu", *, slot: int = 0, segments=None
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same Philox bits in int64
     tensor arithmetic.  ``seed`` is an int or a seed table read at
     ``slot``.  ``keep_prob`` may also be a 0-d tensor (the plain dropout arm
-    for a traced keep probability)."""
+    for a traced keep probability).  ``segments``: the global elements to
+    draw (the module's docstring)."""
     _check(keep_prob, dtype)
-    bits = _bits(_seed_value(seed, slot), math.prod(shape), device).reshape(shape)
+    bits = _bits(_seed_value(seed, slot), math.prod(shape), device, segments).reshape(shape)
     if isinstance(keep_prob, torch.Tensor):
         kp = keep_prob.to(device=device, dtype=torch.float64)
         thresh = torch.clamp(torch.floor(kp * float(1 << 32)), max=float(_U32)).to(torch.int64)
@@ -152,12 +189,16 @@ def dropout_mask_reference(
     return torch.where(bits < thresh, scale, torch.zeros((), device=device)).to(dtype)
 
 
-def philox_uniform_reference(seed, shape, scale: float = 1.0, device="cpu", *, slot: int = 0) -> torch.Tensor:
+def philox_uniform_reference(seed, shape, scale: float = 1.0, device="cpu", *, slot: int = 0,
+                             segments=None) -> torch.Tensor:
     """Plain PyTorch version of the uniform kernel: fp32 values in [0,
-    ``scale``) from the same Philox bits; ``seed`` as in
+    ``scale``) from the same Philox bits; ``seed`` and ``segments`` as in
     :func:`dropout_mask_reference`."""
-    u = (_bits(_seed_value(seed, slot), math.prod(shape), device) >> 8).to(torch.float32) * 2.0**-24
+    u = (_bits(_seed_value(seed, slot), math.prod(shape), device, segments) >> 8).to(torch.float32) * 2.0**-24
     return (u * torch.full((), float(np.float32(scale)), dtype=torch.float32, device=device)).reshape(shape)
+
+
+_I64P = ctypes.POINTER(ctypes.c_int64)
 
 
 @functools.cache
@@ -169,15 +210,19 @@ def _entry(name: str):
                                ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "ctgan_philox_uniform": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_void_p],
+        "ctgan_dropout_mask_segments": [ctypes.c_void_p, _I64P, _I64P, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "ctgan_philox_uniform_segments": [ctypes.c_void_p, _I64P, _I64P, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
     }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, out: torch.Tensor, seed, slot: int, *args) -> None:
+def _launch(name: str, out: torch.Tensor, seed, slot: int, *args, segments=None) -> None:
     """Launch ``name`` on ``out``'s device and current stream with the seed
-    ``seed`` (an int: a one-element table) or ``seeds[slot]``; raises if the
-    launch fails."""
+    ``seed`` (an int: a one-element table) or ``seeds[slot]``; with
+    ``segments`` its ``_segments`` entry.  Raises if the launch fails."""
     if not out.is_contiguous() or out.data_ptr() % 16:
         raise RuntimeError(f"{name} needs a contiguous, 16-byte aligned output")
     if out.numel() >= _MAX_ELEMENTS:
@@ -185,9 +230,16 @@ def _launch(name: str, out: torch.Tensor, seed, slot: int, *args) -> None:
     if not isinstance(seed, torch.Tensor):
         seed, slot = seed_table([seed], out.device), 0
     _check_table(seed, slot, out.device)
+    if segments is None:
+        head = (out.numel(),)
+    else:
+        segs = _check_segments(segments, out.numel())
+        starts = (ctypes.c_int64 * len(segs))(*(a for a, _ in segs))
+        counts = (ctypes.c_int64 * len(segs))(*(c for _, c in segs))
+        name, head = name + "_segments", (starts, counts, len(segs))
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = _entry(name)(out.data_ptr(), out.numel(), seed.data_ptr(), slot, *args, stream)
+        rc = _entry(name)(out.data_ptr(), *head, seed.data_ptr(), slot, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
@@ -207,7 +259,8 @@ def _output_device(seed, slot: int, device) -> torch.device:
 
 
 def dropout_mask(
-    seed, shape, keep_prob: float, dtype: torch.dtype = torch.float32, device="cuda", *, slot: int = 0
+    seed, shape, keep_prob: float, dtype: torch.dtype = torch.float32, device="cuda", *, slot: int = 0,
+    segments=None,
 ) -> torch.Tensor:
     """Scaled keep-mask (0 or ``1/keep_prob``) of ``shape`` in ``dtype``,
     from the uint32 ``seed`` or the seed table ``seed`` at ``slot``.
@@ -215,40 +268,49 @@ def dropout_mask(
     On a CUDA device this launches the kernel on the current stream; on the
     CPU it returns :func:`dropout_mask_reference`.  ``keep_prob`` is a static
     float (a tensor keep probability takes the plain arm in
-    :func:`ctgan_tpu_torch.ops.dropout.dropout`)."""
+    :func:`ctgan_tpu_torch.ops.dropout.dropout`).  ``segments``: the global
+    elements to draw (the module's docstring)."""
     device = _output_device(seed, slot, device)
     _check(keep_prob, dtype)
     if isinstance(keep_prob, torch.Tensor):
         raise TypeError("the kernel takes a static keep_prob; use dropout_mask_reference")
     if device.type == "cpu":
-        return dropout_mask_reference(seed, shape, keep_prob, dtype, device, slot=slot)
+        return dropout_mask_reference(seed, shape, keep_prob, dtype, device, slot=slot, segments=segments)
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.numel() == 0:
         return out
+    segments = None if whole(segments, out.numel()) else segments
     _launch("ctgan_dropout_mask", out, seed, slot, keep_threshold(keep_prob),
-            float(np.float32(1.0 / keep_prob)), _DTYPE_CODES[dtype])
+            float(np.float32(1.0 / keep_prob)), _DTYPE_CODES[dtype], segments=segments)
     dropout_mask.launches += 1
+    dropout_mask.segment_launches += segments is not None
     return out
 
 
 dropout_mask.launches = 0
+dropout_mask.segment_launches = 0
 
 
-def philox_uniform(seed, shape, scale: float = 1.0, device="cuda", *, slot: int = 0) -> torch.Tensor:
+def philox_uniform(seed, shape, scale: float = 1.0, device="cuda", *, slot: int = 0,
+                   segments=None) -> torch.Tensor:
     """fp32 uniforms in [0, ``scale``) of ``shape``, a function of the
-    uint32 ``seed`` or of the seed table ``seed`` at ``slot``.
+    uint32 ``seed`` or of the seed table ``seed`` at ``slot``; ``segments``
+    as in :func:`dropout_mask`.
 
     On a CUDA device this launches the kernel on the current stream; on the
     CPU it returns :func:`philox_uniform_reference`."""
     device = _output_device(seed, slot, device)
     if device.type == "cpu":
-        return philox_uniform_reference(seed, shape, scale, device, slot=slot)
+        return philox_uniform_reference(seed, shape, scale, device, slot=slot, segments=segments)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _launch("ctgan_philox_uniform", out, seed, slot, float(np.float32(scale)))
+    segments = None if whole(segments, out.numel()) else segments
+    _launch("ctgan_philox_uniform", out, seed, slot, float(np.float32(scale)), segments=segments)
     philox_uniform.launches += 1
+    philox_uniform.segment_launches += segments is not None
     return out
 
 
 philox_uniform.launches = 0
+philox_uniform.segment_launches = 0

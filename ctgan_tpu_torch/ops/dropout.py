@@ -18,14 +18,16 @@ from ..kernels.dropout import dropout_mask_reference
 __all__ = ["dropout", "make_mask"]
 
 
-def make_mask(seed, shape, keep_prob, dtype: torch.dtype, device, *, slot: int = 0) -> torch.Tensor:
-    """The mask of ``seed`` (an int, or a seed table read at ``slot``).  A
-    static ``keep_prob`` goes through the CUDA kernel's wrapper (the
-    ``ctgan_tpu/ops/dropout.py:54-58`` arm); a tensor ``keep_prob`` takes the
-    plain version."""
+def make_mask(seed, shape, keep_prob, dtype: torch.dtype, device, *, slot: int = 0,
+              segments=None) -> torch.Tensor:
+    """The mask of ``seed`` (an int, or a seed table read at ``slot``), of
+    the global elements ``segments`` (``kernels.dropout``; None: the whole
+    draw).  A static ``keep_prob`` goes through the CUDA kernel's wrapper
+    (the ``ctgan_tpu/ops/dropout.py:54-58`` arm); a tensor ``keep_prob``
+    takes the plain version."""
     if isinstance(keep_prob, torch.Tensor):
-        return dropout_mask_reference(seed, shape, keep_prob, dtype, device, slot=slot)
-    return _kernel_mask(seed, shape, keep_prob, dtype, device, slot=slot)
+        return dropout_mask_reference(seed, shape, keep_prob, dtype, device, slot=slot, segments=segments)
+    return _kernel_mask(seed, shape, keep_prob, dtype, device, slot=slot, segments=segments)
 
 
 def dropout(x: torch.Tensor, keep_prob, masks) -> torch.Tensor:

@@ -30,6 +30,14 @@ Capturing runs with ``capture_error_mode="global"``: the threads that run
 beside a training step (``utils.watchdog``, ``data.images_dir.prefetch``,
 ``data.native``'s workers) make no CUDA calls, so any CUDA call that is not
 safe during a capture is an error of the step.
+
+A step over a mesh of processes (``parallel``) holds collectives.  NCCL's
+are captured with the step: the warm-up iterations run them eagerly on the
+capture's stream, and one more all-reduce there right before the capture
+makes sure the communicator exists and has run on that stream's device;
+every collective of the step then runs on the capturing stream's work.
+gloo's cannot be captured: :func:`step_runner` runs such a step eagerly and
+says so (no silent downgrade).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import contextlib
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from ..core.rng import Randomness, StaticRandomness, host_to_device
 from ..kernels.dropout import dropout_mask, philox_uniform
@@ -73,12 +82,15 @@ class CapturedStep:
     on ``rand``'s device (see the module's docstring); ``rand`` is the
     run's base :class:`~ctgan_tpu_torch.core.rng.Randomness`."""
 
-    def __init__(self, fn: Callable, rand: Randomness, *, name: str, graph: bool | None = None):
-        self.fn, self.name, self.device = fn, name, rand.device
+    def __init__(self, fn: Callable, rand: Randomness, *, name: str, graph: bool | None = None, mesh=None):
+        self.fn, self.name, self.device, self.mesh = fn, name, rand.device, mesh
         self.graph = self.device.type == "cuda" if graph is None else graph
         if self.graph and self.device.type != "cuda":
             raise ValueError(f"{name}: a CUDA graph needs a CUDA device, not {self.device}")
-        self.provider = StaticRandomness(rand.seed, rand.device, cuda_dropout=rand._cuda_dropout)
+        if self.graph and mesh is not None and mesh.backend != "nccl":
+            raise ValueError(f"{name}: {mesh.backend} collectives cannot be captured in a CUDA graph")
+        self.provider = StaticRandomness(rand.seed, rand.device, cuda_dropout=rand._cuda_dropout,
+                                         rank=rand.rank, world=rand.world)
         self.stream = torch.cuda.Stream(self.device) if self.graph else None
         self.launches = (0,) * len(_COUNTERS)  # recorded by the capture: added on each replay
         self.warmup_calls = 0
@@ -150,8 +162,16 @@ class CapturedStep:
             raise RuntimeError(f"{self.name}: the step took {used} of the {len(self.provider.program)} draws "
                                "and host values its warm-up step took")
 
+    def _warm_communicator(self) -> None:
+        """One eager all-reduce over the mesh on the capture's stream."""
+        with torch.cuda.stream(self.stream):
+            dist.all_reduce(torch.zeros(1, device=self.device), group=self.mesh.world_group)
+        self.stream.synchronize()
+
     def _capture(self, state, inputs):
         step = state.step
+        if self.mesh is not None:
+            self._warm_communicator()
         static = self._static_inputs(step, inputs)
         before = [c.launches for c in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
@@ -188,14 +208,20 @@ class CapturedStep:
         return self._outputs
 
 
-def step_runner(fn: Callable, rand, *, name: str, jit_step: bool = True) -> Callable:
+def step_runner(fn: Callable, rand, *, name: str, jit_step: bool = True, mesh=None) -> Callable:
     """``run(state, *inputs)`` -> ``fn``'s outputs: a :class:`CapturedStep`
     where ``jit_step`` and ``rand`` is a ``Randomness`` on the card, else
     ``fn(state, *inputs, rand)`` eagerly, host tensors of ``inputs`` moved
-    to ``rand``'s device first."""
+    to ``rand``'s device first.  A step over a ``mesh`` whose backend is not
+    NCCL (gloo) runs eagerly: its collectives cannot be captured, and the
+    rule is printed."""
     device = rand.device if isinstance(rand, Randomness) else None
     if jit_step and device is not None and device.type == "cuda":
-        return CapturedStep(fn, rand, name=name)
+        if mesh is not None and mesh.backend != "nccl":
+            print(f"{name}: {mesh.backend} collectives cannot be captured in a CUDA graph: "
+                  f"the step runs eagerly (jit_step=False)")
+        else:
+            return CapturedStep(fn, rand, name=name, mesh=mesh)
     if device is not None:
         return lambda state, *inputs: fn(state, *to_device(inputs, device), rand)
     return lambda state, *inputs: fn(state, *inputs, rand)

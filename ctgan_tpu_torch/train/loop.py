@@ -31,6 +31,15 @@ Such a ``step_fn`` updates the state in place, draws through
 CPU run the step eagerly.  The metrics a replay returns are its static
 outputs: ``_Pending.add`` copies them (``torch.stack`` on the same stream)
 before the next replay overwrites them.
+
+Over a mesh of processes (``mesh``, ``parallel``) every rank runs the loop
+in lock step; only rank 0 logs (the others pass a quiet
+logger) and writes checkpoints.  ``to_blob`` gathers the full leaves on
+every rank (a collective), rank 0 writes them and every rank waits at a
+barrier after the save; every rank reads a checkpoint to resume, and
+``from_blob`` keeps its shard.  ``test_fn`` is called on every rank (the
+app evaluates on rank 0).  The step runs as ``capture.step_runner`` says for
+the mesh's backend.
 """
 
 from __future__ import annotations
@@ -130,17 +139,22 @@ def train_loop(
     set_data_state: Callable[[dict], None] | None = None,
     to_blob: Callable[[Any], Any] = _identity,
     from_blob: Callable[[Any], Any] = _identity,
+    mesh=None,
 ) -> Any:
     """Train from the newest checkpoint (or ``state``) to ``cfg.iters``;
     returns the final state.  ``rand`` is passed to every ``step_fn``
-    call."""
+    call.  ``mesh``: the run's process grid (the module's docstring)."""
+    if mesh is not None and cfg.save_every_secs:
+        raise ValueError("save_every_secs over a mesh: the ranks' clocks would save at different iterations")
     logger = logger or MetricLogger()
     out_dir = logger.out_dir
-    if out_dir:
+    main = mesh is None or mesh.rank == 0
+    if out_dir and main:
         reap_stale_tmps(out_dir)
     if cfg.ckpt_dir:
         os.makedirs(cfg.ckpt_dir, exist_ok=True)
-        reap_stale_tmps(cfg.ckpt_dir)
+        if main:
+            reap_stale_tmps(cfg.ckpt_dir)
 
     start_iter = 0
     if cfg.resume and cfg.ckpt_dir:
@@ -151,7 +165,8 @@ def train_loop(
             start_iter = int(blob["loop"]["iteration"])
             if set_data_state and blob.get("data_state"):
                 set_data_state(blob["data_state"])
-            print(f"resumed from {path} at iteration {start_iter}")
+            if main:
+                print(f"resumed from {path} at iteration {start_iter}")
 
     params_path = os.path.join(out_dir, "params_latest.npz") if out_dir else None
     if cfg.resume and start_iter == 0 and params_path and os.path.exists(params_path):
@@ -164,8 +179,9 @@ def train_loop(
                 fresh["step"] = it
             state = from_blob(fresh)
             start_iter = it
-            print(f"resumed (approximate) from {params_path} at iteration {it}: "
-                  f"params exact, optimizer re-warmed")
+            if main:
+                print(f"resumed (approximate) from {params_path} at iteration {it}: "
+                      f"params exact, optimizer re-warmed")
 
     if out_dir and cfg.ckpt_dir:
         # logs flush more often than checkpoints: a legitimate resume can
@@ -175,12 +191,12 @@ def train_loop(
 
     logger.set_iteration(start_iter)
     pending = _Pending(logger)
-    run_step = _step_runner(step_fn, rand, cfg)
+    run_step = _step_runner(step_fn, rand, cfg, mesh)
     watchdog = StepWatchdog.start_from_env(name="train_loop")
     try:
         state = _train_iterations(
             state, run_step, next_batch, cfg, logger, start_iter, pending, watchdog,
-            test_fn=test_fn, callback=callback, data_state=data_state, to_blob=to_blob,
+            test_fn=test_fn, callback=callback, data_state=data_state, to_blob=to_blob, mesh=mesh,
         )
     finally:
         watchdog.stop()
@@ -193,8 +209,11 @@ def train_loop(
     return state
 
 
-def _save(cfg: LoopConfig, logger: MetricLogger, state, iteration: int, data_state, to_blob):
-    blob_state = to_blob(state)
+def _save(cfg: LoopConfig, logger: MetricLogger, state, iteration: int, data_state, to_blob, mesh=None):
+    blob_state = to_blob(state)  # every rank: the full leaves are gathered
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        return
     save_checkpoint(os.path.join(cfg.ckpt_dir, f"ckpt_{iteration + 1}.npz"), {
         "state": blob_state,
         "loop": {"iteration": iteration + 1},
@@ -209,14 +228,16 @@ def _save(cfg: LoopConfig, logger: MetricLogger, state, iteration: int, data_sta
         if params:
             save_checkpoint(os.path.join(logger.out_dir, "params_latest.npz"),
                             {"params": params, "iteration": iteration + 1})
+    if mesh is not None:
+        mesh.barrier()
 
 
-def _step_runner(step_fn: Callable, rand, cfg: LoopConfig) -> Callable:
+def _step_runner(step_fn: Callable, rand, cfg: LoopConfig, mesh=None) -> Callable:
     """``run(state, batch) -> (state, metrics)``: the captured step where
     ``cfg.jit_step`` and ``rand`` runs on the card, else ``step_fn``
     eagerly."""
     run = capture.step_runner(step_fn, rand, name=getattr(step_fn, "__qualname__", "step_fn"),
-                              jit_step=cfg.jit_step)
+                              jit_step=cfg.jit_step, mesh=mesh)
     if not isinstance(run, CapturedStep):
         return lambda state, batch: run(state, *batch)
 
@@ -230,7 +251,7 @@ def _step_runner(step_fn: Callable, rand, cfg: LoopConfig) -> Callable:
 
 
 def _train_iterations(state, run_step, next_batch, cfg, logger, start_iter, pending,
-                      watchdog, *, test_fn, callback, data_state, to_blob):
+                      watchdog, *, test_fn, callback, data_state, to_blob, mesh):
     timer = StepTimer()
     last_print = last_save = time.time()
     for iteration in range(start_iter, cfg.iters):
@@ -264,7 +285,7 @@ def _train_iterations(state, run_step, next_batch, cfg, logger, start_iter, pend
             save_now = True
         if cfg.ckpt_dir and save_now:
             last_save = time.time()
-            _save(cfg, logger, state, iteration, data_state, to_blob)
+            _save(cfg, logger, state, iteration, data_state, to_blob, mesh)
 
         print_now = iteration < cfg.print_first or iteration % cfg.print_every == cfg.print_every - 1
         if cfg.print_every_secs and time.time() - last_print >= cfg.print_every_secs:

@@ -19,6 +19,14 @@ The state is updated in place.
 :meth:`~AcganTrainer.generate` are the evaluation functions
 (``ctgan_tpu/train/trainer_acgan.py:275-305``).  Batch norm in G uses the
 statistics of the batch it is given, so samples depend on the batch size.
+
+``spmd_hooks`` (``parallel.SpmdHooks``) run the substeps over a mesh of
+processes at the JAX trainer's hook points
+(``ctgan_tpu/train/trainer_acgan.py:194-240``), as in
+``train.trainer_gan``.  Each D pass declares its global layout to the
+provider (``core.rng.pass_rows``): the fused CT pass is four blocks (real,
+fake, real, fake), an unfused CT pass two, so that a rank's masks are its
+rows of the one-process masks (the clean pass draws none).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Callable
 
 import torch
 
+from ..core.rng import pass_rows
 from ..losses.gan import (
     acgan_accuracy,
     acgan_loss,
@@ -37,6 +46,7 @@ from ..losses.gan import (
 )
 from .optim import Adam
 from .schedules import linear_decay
+from .trainer_gan import GanTrainer
 
 __all__ = ["AcganConfig", "AcganState", "AcganTrainer"]
 
@@ -79,8 +89,11 @@ class AcganTrainer:
     """``gen_fn(params, n, labels, rand, noise=None)`` -> flat images;
     ``disc_fn(params, x, labels, kps, rand)`` -> ``DiscOut``."""
 
-    def __init__(self, gen_fn: Callable, disc_fn: Callable, cfg: AcganConfig):
-        self.gen_fn, self.disc_fn, self.cfg = gen_fn, disc_fn, cfg
+    full_params = GanTrainer.full_params
+    norm_scope = GanTrainer.norm_scope
+
+    def __init__(self, gen_fn: Callable, disc_fn: Callable, cfg: AcganConfig, spmd_hooks=None):
+        self.gen_fn, self.disc_fn, self.cfg, self.spmd_hooks = gen_fn, disc_fn, cfg, spmd_hooks
         lr = linear_decay(cfg.lr, cfg.iters) if cfg.decay else cfg.lr
         self.gen_optimizer = Adam(lr, cfg.beta1, cfg.beta2)
         self.disc_optimizer = Adam(lr, cfg.beta1, cfg.beta2)
@@ -101,13 +114,15 @@ class AcganTrainer:
         both = torch.cat([real, fake])
         both_labels = torch.cat([labels, labels])
         if cfg.fuse_ct_passes:
-            d_pair = self.disc_fn(disc_params, torch.cat([both, both]),
-                                  torch.cat([both_labels, both_labels]), cfg.kp, rand)
+            with pass_rows(rand, 4):
+                d_pair = self.disc_fn(disc_params, torch.cat([both, both]),
+                                      torch.cat([both_labels, both_labels]), cfg.kp, rand)
             d_all = type(d_pair)(*(None if v is None else v[: 2 * b] for v in d_pair))
             d_all_2 = type(d_pair)(*(None if v is None else v[2 * b:] for v in d_pair))
         else:
-            d_all = self.disc_fn(disc_params, both, both_labels, cfg.kp, rand)
-            d_all_2 = self.disc_fn(disc_params, both, both_labels, cfg.kp, rand)
+            with pass_rows(rand, 2):
+                d_all = self.disc_fn(disc_params, both, both_labels, cfg.kp, rand)
+                d_all_2 = self.disc_fn(disc_params, both, both_labels, cfg.kp, rand)
 
         d_real, d_fake = d_all.wgan[:b], d_all.wgan[b:]
         _, wgan = wgan_losses(d_real, d_fake)
@@ -126,7 +141,7 @@ class AcganTrainer:
             cost = cost + cfg.acgan_scale * ac
             metrics["acgan"] = ac
             if cfg.clean_pass:
-                with torch.no_grad():
+                with torch.no_grad():  # keep probability 1: draws nothing
                     d_clean = self.disc_fn(disc_params, both, both_labels, (1.0, 1.0, 1.0), rand)
                 metrics["acc_real"] = acgan_accuracy(d_clean.acgan[:b], labels)
                 metrics["acc_fake"] = acgan_accuracy(d_clean.acgan[b:], labels)
@@ -149,12 +164,16 @@ class AcganTrainer:
         JAX step blends it away, so both draw the same randomness.  A
         captured step (``train.capture``) runs step 0 eagerly and is
         captured at a later step, so its graph always takes the update."""
-        cost = self.gen_loss(state.gen_params, state.disc_params, rand)
-        names = list(state.gen_params)
-        grads = torch.autograd.grad(cost, [state.gen_params[k] for k in names])
+        with self.norm_scope():
+            gen_params, disc_params = self.full_params(state)
+            cost = self.gen_loss(gen_params, disc_params, rand)
+            names = list(gen_params)
+            grads = dict(zip(names, torch.autograd.grad(cost, [gen_params[k] for k in names])))
+        if self.spmd_hooks is not None:
+            grads = self.spmd_hooks.sync_gen_grads(grads)
+            cost = self.spmd_hooks.sync_metrics(cost.detach())
         if state.step > 0:
-            self.gen_optimizer.update(dict(zip(names, grads)), state.gen_opt,
-                                      state.gen_params, state.step, rand)
+            self.gen_optimizer.update(grads, state.gen_opt, state.gen_params, state.step, rand)
         return cost.detach()
 
     @staticmethod
@@ -166,12 +185,17 @@ class AcganTrainer:
     def critic_substep(self, state: AcganState, real_u8: torch.Tensor, labels: torch.Tensor,
                        rand) -> dict:
         real = self.dequantize(real_u8, rand)
-        cost, metrics = self.disc_loss(state.disc_params, state.gen_params, real, labels, rand)
-        names = list(state.disc_params)
-        grads = torch.autograd.grad(cost, [state.disc_params[k] for k in names])
-        self.disc_optimizer.update(dict(zip(names, grads)), state.disc_opt,
-                                   state.disc_params, state.step, rand)
-        return {k: v.detach() for k, v in metrics.items()}
+        with self.norm_scope():
+            gen_params, disc_params = self.full_params(state)
+            cost, metrics = self.disc_loss(disc_params, gen_params, real, labels, rand)
+            names = list(disc_params)
+            grads = dict(zip(names, torch.autograd.grad(cost, [disc_params[k] for k in names])))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.spmd_hooks is not None:
+            grads = self.spmd_hooks.sync_disc_grads(grads)
+            metrics = self.spmd_hooks.sync_metrics(metrics)
+        self.disc_optimizer.update(grads, state.disc_opt, state.disc_params, state.step, rand)
+        return metrics
 
     def step(self, state: AcganState, real_stack: torch.Tensor, label_stack: torch.Tensor,
              rand) -> dict:

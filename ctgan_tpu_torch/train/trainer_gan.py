@@ -27,10 +27,18 @@ and so do the optimisers' per-step scalars (``optim.device_scalars``).
 The state is updated in place.  :meth:`GanTrainer.dev_cost` and
 :meth:`~GanTrainer.sample` are the evaluation functions
 (``disc_cost_fn`` and ``sample_fn`` of the JAX trainer).
+
+``spmd_hooks`` (``parallel.SpmdHooks``) run the substeps over a mesh of
+processes at the JAX trainer's hook points
+(``ctgan_tpu/train/trainer_gan.py:191-234``): each substep computes with the
+gathered leaves, syncs the gradients (before any clip) and the metrics, and
+updates the stored shards; batch norms inside take the hooks'
+``batch_group``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -43,6 +51,7 @@ from ..losses.gan import (
     lsgan_losses,
     wgan_losses,
 )
+from ..ops.norm import batch_group
 from .optim import Adam, RMSProp, clip_grads_by_global_norm, clip_grads_by_value, clip_params_by_value
 from .schedules import linear_decay
 
@@ -105,9 +114,7 @@ class GanTrainer:
         if cfg.opt_state_dtype != "float32":
             raise NotImplementedError(
                 f"opt_state_dtype {cfg.opt_state_dtype!r} is not ported yet: ROADMAP Queue 1 item 17")
-        if spmd_hooks is not None:
-            raise NotImplementedError("spmd_hooks are not ported yet: ROADMAP Queue 1 item 16")
-        self.gen_fn, self.disc_fn, self.cfg = gen_fn, disc_fn, cfg
+        self.gen_fn, self.disc_fn, self.cfg, self.spmd_hooks = gen_fn, disc_fn, cfg, spmd_hooks
         self.gen_optimizer, self.disc_optimizer = _make_optimizers(cfg)
         self.is_ct = cfg.mode in ("wgan-CT", "wgan-ct")
         self.is_gp = self.is_ct or cfg.mode == "wgan-gp"
@@ -156,25 +163,49 @@ class GanTrainer:
             return lsgan_losses(d_fake.new_zeros(1), d_fake)[0]
         return -d_fake.mean()
 
+    def full_params(self, state) -> tuple[dict, dict]:
+        """(G's, D's) leaves a substep computes with: the stored ones, or
+        under ``spmd_hooks`` the gathered ones."""
+        hooks = self.spmd_hooks
+        if hooks is None:
+            return state.gen_params, state.disc_params
+        return hooks.gather_gen(state.gen_params), hooks.gather_disc(state.disc_params)
+
+    def norm_scope(self):
+        """The batch-norm group of the hooks around a substep."""
+        hooks = self.spmd_hooks
+        return batch_group(hooks.batch_group) if hooks is not None else contextlib.nullcontext()
+
     def gen_substep(self, state: GanState, rand) -> torch.Tensor:
         """G update.  At step 0 the update is computed and dropped, as the
         JAX step blends it away, so both draw the same randomness.  A
         captured step (``train.capture``) runs step 0 eagerly and is
         captured at a later step, so its graph always takes the update."""
-        cost = self.gen_loss(state.gen_params, state.disc_params, rand)
-        names = list(state.gen_params)
-        grads = torch.autograd.grad(cost, [state.gen_params[k] for k in names])
+        with self.norm_scope():
+            gen_params, disc_params = self.full_params(state)
+            cost = self.gen_loss(gen_params, disc_params, rand)
+            names = list(gen_params)
+            grads = dict(zip(names, torch.autograd.grad(cost, [gen_params[k] for k in names])))
+        if self.spmd_hooks is not None:
+            grads = self.spmd_hooks.sync_gen_grads(grads)
+            cost = self.spmd_hooks.sync_metrics(cost.detach())
         if state.step > 0:
-            self.gen_optimizer.update(dict(zip(names, grads)), state.gen_opt,
-                                      state.gen_params, state.step, rand)
+            self.gen_optimizer.update(grads, state.gen_opt, state.gen_params, state.step, rand)
         return cost.detach()
 
     def critic_substep(self, state: GanState, real: torch.Tensor, rand) -> dict:
         """One critic update on a ``[B, D]`` batch of reals in [-1, 1]."""
         cfg = self.cfg
-        cost, metrics = self.disc_loss(state.disc_params, state.gen_params, real, rand)
-        names = list(state.disc_params)
-        grads = dict(zip(names, torch.autograd.grad(cost, [state.disc_params[k] for k in names])))
+        with self.norm_scope():
+            gen_params, disc_params = self.full_params(state)
+            cost, metrics = self.disc_loss(disc_params, gen_params, real, rand)
+            names = list(disc_params)
+            grads = dict(zip(names, torch.autograd.grad(cost, [disc_params[k] for k in names])))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.spmd_hooks is not None:
+            # the mesh mean (and the shards) before any clip: the clips see the one-device gradients
+            grads = self.spmd_hooks.sync_disc_grads(grads)
+            metrics = self.spmd_hooks.sync_metrics(metrics)
         if cfg.clip_grad_value is not None:
             grads = clip_grads_by_value(grads, cfg.clip_grad_value)
         if cfg.clip_global_norm is not None:
@@ -182,7 +213,7 @@ class GanTrainer:
         self.disc_optimizer.update(grads, state.disc_opt, state.disc_params, state.step, rand)
         if cfg.mode == "wgan":
             clip_params_by_value(state.disc_params, cfg.clip_value)
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def step(self, state: GanState, real_stack: torch.Tensor, rand) -> dict:
         """One iteration on ``real_stack``, ``[K, B, D]`` reals in [-1, 1].

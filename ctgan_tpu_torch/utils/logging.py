@@ -10,6 +10,8 @@ resumed run keeps its history.  ``save_curves`` draws one image per metric
 with matplotlib, imported only when asked for.
 
 Unlike the JAX logger, :attr:`records` keeps the rows this process flushed.
+A ``quiet`` logger prints and writes nothing (a data-parallel run's ranks
+but the first); it keeps ``out_dir`` to name the run's directory.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ __all__ = ["MetricLogger"]
 
 class MetricLogger:
     def __init__(self, out_dir: str | None = None, *, save_curves: bool = False,
-                 print_std: bool = False):
-        self.out_dir = out_dir
-        if out_dir:
+                 print_std: bool = False, quiet: bool = False):
+        self.out_dir, self.quiet = out_dir, quiet
+        if out_dir and not quiet:
             os.makedirs(out_dir, exist_ok=True)
         self.save_curves = save_curves
         self.print_std = print_std
@@ -39,7 +41,7 @@ class MetricLogger:
         self._history: dict[str, dict[int, float]] = collections.defaultdict(dict)
         # log.pkl is rewritten from _history on every flush: without the
         # reload a resumed run would erase the curve before the resume
-        if out_dir:
+        if out_dir and not quiet:
             pkl = os.path.join(out_dir, "log.pkl")
             if os.path.exists(pkl):
                 try:
@@ -104,11 +106,12 @@ class MetricLogger:
             else:
                 prints.append(f"{name}\t{mean:.5f}")
             self._history[name][self._iter] = mean
-        print(f"iter {self._iter}\t" + "\t".join(prints), flush=True)
+        if not self.quiet:
+            print(f"iter {self._iter}\t" + "\t".join(prints), flush=True)
         self._since_flush.clear()
         self.records.append(record)
 
-        if self.out_dir:
+        if self.out_dir and not self.quiet:
             with open(os.path.join(self.out_dir, "log.ndjson"), "a") as f:
                 f.write(json.dumps(record) + "\n")
             # atomic: log.pkl is what resume.logged_progress trusts

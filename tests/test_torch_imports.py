@@ -1,7 +1,8 @@
 """The port runs where JAX is not installed: no module of
-``ctgan_tpu_torch``, not ``chip_smoke.py`` and not the graph writer it
-imports (``tests/torch_inception_graph.py``) imports ``jax``, ``jaxlib`` or
-the JAX package ``ctgan_tpu``."""
+``ctgan_tpu_torch``, not ``chip_smoke.py``, not the graph writer it
+imports (``tests/torch_inception_graph.py``) and not the processes the
+parallel tests spawn (``tests/torch_parallel_workers.py``) imports ``jax``,
+``jaxlib`` or the JAX package ``ctgan_tpu``."""
 
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "ctgan_tpu"}
-FILES = sorted((ROOT / "ctgan_tpu_torch").rglob("*.py")) + [ROOT / "tests" / "torch_inception_graph.py",
-                                                            ROOT / "chip_smoke.py"]
+EXTRA = [ROOT / "tests" / "torch_inception_graph.py", ROOT / "tests" / "torch_parallel_workers.py",
+         ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "ctgan_tpu_torch").rglob("*.py")) + EXTRA
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -28,7 +30,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_the_scan_sees_the_port():
     assert len(FILES) > 20 and all(f.is_file() for f in FILES)
-    names = {str(f.relative_to(ROOT / "ctgan_tpu_torch")) for f in FILES[:-2]}
+    names = {str(f.relative_to(ROOT / "ctgan_tpu_torch")) for f in FILES[:-len(EXTRA)]}
     assert {"models/dcgan.py", "models/fc.py", "ops/activations.py", "ops/init.py", "data/mnist.py",
             "data/synthetic.py", "apps/ct_gan_mnist.py", "apps/ct_gan_cifar.py"} <= names
     assert {"ops/noise.py", "ops/weightnorm.py", "train/wn_init.py", "train/trainer_semisup.py",
@@ -37,6 +39,7 @@ def test_the_scan_sees_the_port():
     assert {"models/lsun128.py", "apps/wgan_lsun128.py", "data/images_dir.py", "data/native.py"} <= names
     assert {"eval/graphdef.py", "eval/inception2015.py", "utils/aot.py", "__main__.py",
             "apps/onehot_toys.py"} <= names
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/spmd.py", "parallel/collectives.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
