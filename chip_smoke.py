@@ -209,6 +209,35 @@ Phases, each printed with its seconds:
     those bounds, then 2 eager iterations through the step runner (gloo:
     the rule printed), whose launches and segment launches are main-path
     counts.
+39. remat_equal (after dp_two_ranks): the flagship at its defaults (bf16,
+    dim 128, batch 64, on the small synthetic set of ``DP_SYNTHETIC``), 5
+    captured iterations with ``REMAT`` and without from one state, cuDNN
+    deterministic: every array of the state and every metric (expected max
+    diff 0; else held to Adam's bound and flagged), mask launches per
+    iteration 81 and 33 counted and in a traced replay, s/iter over the
+    replays and peak memory of both; then one eager remat iteration whose
+    every mask (81 draws on 33 slots) equals, bit for bit, the plain
+    version's mask of its slot;
+40. opt_bf16: the flagship and the 64 px app at their defaults, 10 captured
+    iterations with bf16 moments against fp32 ones from one state: the
+    moments bf16 on the device, params within Adam's bound of the fp32 arm,
+    s/iter and peak of both; 5 iterations, a checkpoint (moment leaves
+    ``|V2``), a fresh state from it and 5 more, equal to the straight bf16
+    run (max diff 0);
+41. remat_128: the 128 px model at full width (batch 64, bf16), 3 captured
+    iterations from step 1 with ``REMAT`` and without: max diff 0, 141 and
+    63 masks an iteration, s/iter and peak memory of both;
+42. cli_remat_bf16: ``python -m ctgan_tpu_torch flagship|good64|lsun128
+    --REMAT 1 --OPT_STATE_DTYPE bfloat16 --ITERS 3`` (the CLI's ``main``
+    in this process) at the apps' defaults: the remat mask count per
+    iteration, bf16 moments (``|V2``) in the checkpoint;
+43. library_extra: the rest of the op library (``conv1d``,
+    ``separable_conv2d``, the recurrent cells, ``mlp``, ``embedding``, the
+    KL divergences, minibatch discrimination, ``lsuv_init``, the debug
+    probes), batch norm's moving and blend modes, ``recalibrate_bn`` and
+    the new optimisers (with bf16 moments too) on the card against the
+    CPU, fp32 with TF32 off, within 1e-4 (a bf16 moment's bits within 1);
+    a world-1 NCCL group all-gathers bf16 bit for bit.
 
 Every app run above trains as the app does on the card: each iteration
 after one or two eager warm-up iterations is a replay of one captured CUDA
@@ -290,6 +319,7 @@ from ctgan_tpu_torch.train import capture as capture_mod
 from ctgan_tpu_torch.train.capture import CapturedStep
 from ctgan_tpu_torch.train.optim import adam_mismatches
 from ctgan_tpu_torch.utils import load_checkpoint, make_grid, save_checkpoint
+from ctgan_tpu_torch.utils.checkpoint import as_tensor, is_bf16_bits
 from ctgan_tpu_torch.utils.aot import RECORD as AOT_RECORD
 from ctgan_tpu_torch.utils.aot import AotMismatch, load_aot
 from ctgan_tpu_torch.utils.aot import read_record as read_aot_record
@@ -2421,9 +2451,13 @@ def _captured_arm(device, tr: _Trainer, iters: int, start: int, *, jit_step: boo
     synchronisation at each end), the kernels' launches per iteration and
     the host's ms per iteration to enqueue the first ``RING`` of them (a
     static provider's ring then holds the host back: later iterations
-    wait for the device); the peak device memory.  ``mesh``: the step's
+    wait for the device); the peak device memory, and the peak above what
+    was allocated before the arm made its state (``own_bytes``: the step's
+    own memory, whatever earlier phases left).  ``mesh``: the step's
     process grid (its collectives captured with it)."""
     sync = _sync(device)
+    on_card = torch.device(device).type == "cuda"
+    base = torch.cuda.memory_allocated(device) if on_card else None
     state = state_from_jax(tr.blob, device, tr.state_cls)
     state.step = start
     run = capture_mod.step_runner(tr.step_fn, Randomness(tr.seed, device), name=tr.name, jit_step=jit_step,
@@ -2446,8 +2480,9 @@ def _captured_arm(device, tr: _Trainer, iters: int, start: int, *, jit_step: boo
     out = dict(state=state_to_jax(state), rows=torch.stack(rows).cpu(), s_per_iter=wall / n,
                enqueue_ms=enqueue / n_enqueue * 1e3, timed=n, masks=(dropout_mask.launches - counts[0]) / n,
                uniforms=(philox_uniform.launches - counts[1]) / n, captured=isinstance(run, CapturedStep)
-               and run.captured, peak_bytes=torch.cuda.max_memory_allocated(device)
-               if torch.device(device).type == "cuda" else None, traced=None)
+               and run.captured, peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else None,
+               traced=None)
+    out["own_bytes"] = None if base is None else out["peak_bytes"] - base
     if out["captured"]:
         # one more replay, after the state was read: the kernels the device ran in it
         out["traced"], out["collectives"] = _traced_launches(lambda: run(state, *tr.inputs(start + iters)),
@@ -3271,6 +3306,457 @@ def phase_dp_two_ranks(device, out_dir: str) -> dict:
                 flipped_mass=report["flipped_mass"], **counters)
 
 
+# ------------------------------------------------------------------ remat, bf16 moments, the library's rest
+
+REMAT_ITERS = 5  # the flagship arms: warm-up 0 and 1, the capture at 2, replays 3 and 4 (timed)
+REMAT128_ITERS = 3  # from step 1: warm-up 1, the capture at 2, the replay 3 (timed)
+OPT_ITERS = 10  # the bf16-moment arms; the resume leg: OPT_ITERS // 2 + checkpoint + the rest
+CLI_ITERS = 3
+LIB_BOUND = 1e-4  # library_extra: card against CPU, over each output's largest magnitude (TF32 off)
+
+
+def flagship_masks_per_iteration(cfg: app.Config, remat: bool = False) -> int:
+    """3 masks in G's pass and 3 in each critic substep's fused CT pass and
+    GP pass; with ``REMAT`` each differentiated pass again at each
+    recomputation: G's and the CT pass once (the parameters' backward), the
+    GP pass twice (its input gradient's backward, then the parameters'
+    backward, which reaches the pass again through the double-backward
+    graph): 81 at 5 critic iterations, against 33."""
+    n = cfg.N_CRITIC
+    return 3 + 6 * n + (3 + 9 * n if remat else 0)
+
+
+def gan_remat_masks_per_iteration(cfg) -> int:
+    """An unconditional app's mask launches per iteration with ``REMAT``
+    (the 64 px "Good" critic, the 128 px one; 3 masks a pass): each pass as
+    without, then G's pass and every critic pass recomputed once more and
+    the GP pass twice: 141 at 5 critic iterations and 4 passes, against
+    63."""
+    per = lsun128_masks_per_iteration(cfg) if isinstance(cfg, app128.Config) else gan_masks_per_iteration(cfg)
+    return per + 3 + cfg.CRITIC_ITERS * 3 * (_d_passes("wgan-CT") + 1)
+
+
+def _float_tree(tree):
+    """A state blob with its bf16 leaves (``|V2``) as float32 values."""
+    if isinstance(tree, dict):
+        return {k: _float_tree(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return as_tensor(a).float().numpy() if is_bf16_bits(a) else a
+
+
+def _state_diff(got: dict, want: dict, what: str) -> float:
+    """The largest difference over every array of two state blobs (bf16
+    moments by value)."""
+    a, b = _tree_leaves(_float_tree(got)), _tree_leaves(_float_tree(want))
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: the states differ in structure")
+    return max(float(np.abs(x - y).max()) if x.size else 0.0 for x, y in zip(a, b))
+
+
+def _gib(n_bytes) -> float | None:
+    return None if n_bytes is None else n_bytes / 2**30
+
+
+def _gib_text(n_bytes) -> str:
+    return "not measured" if n_bytes is None else f"{n_bytes / 2**30:.3f} GiB"
+
+
+def _check_arm(what: str, arm: dict, masks: int, uniforms: int, device) -> None:
+    """A ``_captured_arm``'s launches per iteration (``masks``, ``uniforms``
+    on the card, none elsewhere), and on the card its capture and a traced
+    replay's launches."""
+    on_card = torch.device(device).type == "cuda"
+    expected = (masks, uniforms) if on_card else (0, 0)
+    if (arm["masks"], arm["uniforms"]) != expected or on_card and not (
+            arm["captured"] and arm["traced"] == arm["recorded"] == expected):
+        raise AssertionError(f"{what}: captured {arm['captured']}, {arm['masks']} masks + {arm['uniforms']} uniforms "
+                             f"per iteration, traced {arm['traced']}, recorded {arm.get('recorded')}, expected "
+                             f"{expected}")
+
+
+def _replace_trainer(run, **fields):
+    """``run`` (an app's set-up) with a trainer of the same G and D and
+    ``fields`` set in its config."""
+    trainer = run.trainer
+    return run._replace(trainer=type(trainer)(trainer.gen_fn, trainer.disc_fn,
+                                              dataclasses.replace(trainer.cfg, **fields)))
+
+
+def _check_remat_masks(device, fl, blob: dict, step: int = 1) -> dict:
+    """One eager flagship iteration with ``REMAT`` at ``step``: every mask
+    the trainer draws (``core.rng.make_mask``, through the CUDA kernel)
+    equals, bit for bit, the plain version's mask of its seed slot and row
+    segments, and a recomputed draw equals the first draw of its slot.
+    Returns the draws and the distinct slots."""
+    from ctgan_tpu_torch.core import rng as rng_mod
+
+    plain_make, first, calls = rng_mod.make_mask, {}, [0]
+
+    def recorded(seeds, shape, keep_prob, dtype, dev, *, slot=0, segments=None):
+        out = plain_make(seeds, shape, keep_prob, dtype, dev, slot=slot, segments=segments)
+        ref = dropout_mask_reference(seeds, shape, keep_prob, dtype, dev, slot=slot, segments=segments)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"remat_equal: the mask of slot {slot} {shape} differs from the plain version's")
+        if slot in first and not torch.equal(out, first[slot]):
+            raise AssertionError(f"remat_equal: a recomputed mask of slot {slot} differs from its first draw")
+        first.setdefault(slot, out.clone())
+        calls[0] += 1
+        return out
+
+    state = state_from_jax(blob, device, AcganState)
+    state.step = step
+    before = dropout_mask.launches
+    rng_mod.make_mask = recorded
+    try:
+        app.make_step_fn(fl)(state, torch.as_tensor(fl.sampler.host_indices(step)).to(device), fl.rand)
+        _sync(device)()
+    finally:
+        rng_mod.make_mask = plain_make
+    return {"draws": calls[0], "slots": len(first), "launches": dropout_mask.launches - before}
+
+
+def phase_remat_equal(device, fl, cfg: app.Config | None = None) -> dict:
+    """The flagship at its defaults (``fl``: ``app.setup(cfg)``, ``cfg``
+    ``app.Config()``: bf16, dim 128, batch 64), ``REMAT_ITERS`` captured iterations with
+    ``REMAT`` against without, from one state, cuDNN deterministic: every
+    array of the state and every metric, expected max diff 0; the mask
+    launches per iteration of each arm (counted and in a traced replay)
+    against ``flagship_masks_per_iteration``; s/iter and peak memory of
+    both; then one eager remat iteration with every mask held bit for bit
+    against the plain version of its slot (``_check_remat_masks``).  The
+    remat arm is a main path: its launches are counted from 0."""
+    cfg = cfg or app.Config()
+    blob = state_to_jax(fl.state)
+    arms = {}
+    with _cudnn_deterministic():
+        for remat in (False, True):
+            run = _replace_trainer(fl, remat=remat)
+            tr = _Trainer(f"flagship_remat_{int(remat)}", blob, AcganState, app.make_step_fn(run), gan_batches(run),
+                          cfg.seed, flagship_masks_per_iteration(cfg, remat), cfg.N_CRITIC)
+            _zero_counters()
+            arms[remat] = _captured_arm(device, tr, REMAT_ITERS, 0, jit_step=True)
+            arms[remat]["counters"] = _counters()
+            _check_arm(f"remat_equal: REMAT {int(remat)}", arms[remat], tr.masks, tr.uniforms, device)
+            recomputes = getattr(run.trainer.disc_fn, "recomputes", 0)
+            if remat != bool(recomputes):
+                raise AssertionError(f"remat_equal: REMAT {int(remat)} recomputed D {recomputes} times")
+        masks = _check_remat_masks(device, _replace_trainer(fl, remat=True), blob)
+    plain, remat = arms[False], arms[True]
+    state_diff = _state_diff(remat["state"], plain["state"], "remat_equal")
+    metric_diff = float((remat["rows"] - plain["rows"]).abs().max())
+    bound = None
+    if state_diff or metric_diff:
+        # not expected: the same kernels on the same values.  Held to Adam's bound of free-running bf16 runs.
+        bound = _free_run_gap(_float_tree(remat["state"]), _float_tree(plain["state"]), cfg.LR,
+                              (REMAT_ITERS - 1) + cfg.N_CRITIC * REMAT_ITERS, "remat_equal")
+    want = flagship_masks_per_iteration(cfg, True)
+    launched = want if torch.device(device).type == "cuda" else 0
+    if (masks["draws"], masks["slots"], masks["launches"]) != (want, flagship_masks_per_iteration(cfg), launched):
+        raise AssertionError(f"remat_equal: an eager remat iteration drew {masks}, expected {want} draws on "
+                             f"{flagship_masks_per_iteration(cfg)} slots")
+    print(f"remat_equal: flagship at its defaults (bf16, dim {cfg.DIM_G}, batch {cfg.BATCH_SIZE}), {REMAT_ITERS} "
+          f"captured iterations from one state, cuDNN deterministic: REMAT 1 against REMAT 0 max diff {state_diff} "
+          f"over the state, {metric_diff} over the metrics"
+          f"{'' if bound is None else f' (not 0: within Adam bound {json.dumps(bound)})'}; over the last "
+          f"{remat['timed']}: {remat['s_per_iter']:.5f} against {plain['s_per_iter']:.5f} s/iter; peak "
+          f"{_gib_text(remat['peak_bytes'])} against {_gib_text(plain['peak_bytes'])} (the step's own: "
+          f"{_gib_text(remat['own_bytes'])} against {_gib_text(plain['own_bytes'])}); masks per iteration "
+          f"{remat['masks']:g} against {plain['masks']:g} (a traced replay: {remat['traced']} against "
+          f"{plain['traced']}); an eager remat iteration: {masks['draws']} masks on {masks['slots']} slots, "
+          "each bit for bit the plain version's mask of its slot", flush=True)
+    return dict(state_diff=state_diff, metric_diff=metric_diff, s_per_iter=remat["s_per_iter"],
+                plain_s_per_iter=plain["s_per_iter"], peak_gib=_gib(remat["peak_bytes"]),
+                plain_peak_gib=_gib(plain["peak_bytes"]), own_gib=_gib(remat["own_bytes"]),
+                plain_own_gib=_gib(plain["own_bytes"]), masks=remat["masks"], plain_masks=plain["masks"],
+                traced=remat["traced"], timed=remat["timed"], eager_masks=masks, adam_bound=bound,
+                **remat["counters"])
+
+
+def phase_remat_128(device, cfg: app128.Config | None = None) -> dict:
+    """The 128 px model at full width (``app128.Config()``: batch 64, bf16),
+    ``REMAT128_ITERS`` captured iterations from step 1 with ``REMAT`` and
+    without, from one state, cuDNN deterministic: max diff, mask launches
+    per iteration (63 and 141), s/iter and peak memory of each."""
+    cfg = cfg or app128.Config()
+    run = app128.setup(cfg, device)
+    blob = state_to_jax(run.state)
+    arms = {}
+    with _cudnn_deterministic():
+        for remat in (False, True):
+            r = _replace_trainer(run, remat=remat)
+            per = gan_remat_masks_per_iteration(cfg) if remat else lsun128_masks_per_iteration(cfg)
+            tr = _Trainer(f"lsun128_remat_{int(remat)}", blob, GanState, app128.make_step_fn(r), gan_batches(r),
+                          cfg.seed, per)
+            _zero_counters()
+            arms[remat] = _captured_arm(device, tr, REMAT128_ITERS, 1, jit_step=True)
+            arms[remat]["counters"] = _counters()
+            _check_arm(f"remat_128: REMAT {int(remat)}", arms[remat], per, 0, device)
+    plain, remat = arms[False], arms[True]
+    state_diff = _state_diff(remat["state"], plain["state"], "remat_128")
+    metric_diff = float((remat["rows"] - plain["rows"]).abs().max())
+    if state_diff or metric_diff:
+        raise AssertionError(f"remat_128: REMAT 1 differs from REMAT 0: state {state_diff}, metrics {metric_diff}")
+    print(f"remat_128: 128 px at full width (bf16, batch {cfg.BATCH_SIZE}), {REMAT128_ITERS} captured iterations "
+          f"from step 1, cuDNN deterministic: REMAT 1 against REMAT 0 max diff {state_diff} (state), {metric_diff} "
+          f"(metrics); over the last {remat['timed']}: {remat['s_per_iter']:.5f} against {plain['s_per_iter']:.5f} "
+          f"s/iter; peak {_gib_text(remat['peak_bytes'])} against {_gib_text(plain['peak_bytes'])} (the step's own: "
+          f"{_gib_text(remat['own_bytes'])} against {_gib_text(plain['own_bytes'])}); masks per "
+          f"iteration {remat['masks']:g} against {plain['masks']:g}", flush=True)
+    return dict(state_diff=state_diff, s_per_iter=remat["s_per_iter"], plain_s_per_iter=plain["s_per_iter"],
+                peak_gib=_gib(remat["peak_bytes"]), plain_peak_gib=_gib(plain["peak_bytes"]),
+                own_gib=_gib(remat["own_bytes"]), plain_own_gib=_gib(plain["own_bytes"]), masks=remat["masks"],
+                plain_masks=plain["masks"], timed=remat["timed"], **remat["counters"])
+
+
+def _bf16_moments(blob: dict) -> dict:
+    """A state blob with its optimiser moments as bf16 bits (``|V2``), as
+    ``with_state_dtype``'s ``init`` casts them."""
+    def cast(opt):
+        return {k: {n: as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16).view(torch.int16).numpy().view(
+            np.dtype("V2")) for n, a in v.items()} if isinstance(v, dict) else v for k, v in opt.items()}
+
+    return {k: cast(v) if k.endswith("_opt") else v for k, v in blob.items()}
+
+
+def _opt_bf16_app(device, name: str, run, make_step_fn, cfg, state_cls, masks: int, uniforms: int, lr: float,
+                  n_updates: int, out_dir: str) -> dict:
+    """``OPT_ITERS`` captured iterations of ``run``'s step with fp32 and with
+    bf16 moments from one state; the bf16 arm's moments bf16 on the device,
+    its params within Adam's bound of the fp32 arm's (``_free_run_gap``);
+    then ``OPT_ITERS // 2`` iterations, a checkpoint (its moment leaves
+    ``|V2``), a fresh state from it and the rest: equal to the straight
+    bf16 run (max diff 0)."""
+    blob32 = state_to_jax(run.state)
+    blob16 = _bf16_moments(blob32)
+    run16 = _replace_trainer(run, opt_state_dtype="bfloat16")
+    arms = {}
+    with _cudnn_deterministic():
+        for dtype, r, blob in (("float32", run, blob32), ("bfloat16", run16, blob16)):
+            tr = _Trainer(f"{name}_{dtype}", blob, state_cls, make_step_fn(r), gan_batches(r), cfg.seed, masks,
+                          uniforms)
+            _zero_counters()
+            arms[dtype] = _captured_arm(device, tr, OPT_ITERS, 0, jit_step=True)
+            arms[dtype]["counters"] = _counters()
+        half = OPT_ITERS // 2
+        tr = _Trainer(f"{name}_bf16_first", blob16, state_cls, make_step_fn(run16), gan_batches(run16), cfg.seed, masks,
+                      uniforms)
+        first = _captured_arm(device, tr, half, 0, jit_step=True)
+        path = save_checkpoint(f"{out_dir}/{name}_ckpt_{half}.npz", {"state": first["state"]})
+        with np.load(path) as f:
+            v2 = {k: f[k].dtype for k in f.files if "_opt/m/" in k or "_opt/v/" in k}
+        loaded = load_checkpoint(path)["state"]
+        resumed = _captured_arm(device, tr._replace(blob=loaded), OPT_ITERS - half, half, jit_step=True)
+    straight = arms["bfloat16"]
+    for dtype, arm in arms.items():
+        _check_arm(f"opt_bf16 {name} {dtype}", arm, masks, uniforms, device)
+    kinds = {f: {np.asarray(a).dtype for m in ("m", "v") for a in straight["state"][f][m].values()}
+             for f in ("gen_opt", "disc_opt")}
+    if kinds != {"gen_opt": {np.dtype("V2")}, "disc_opt": {np.dtype("V2")}} or set(v2.values()) != {np.dtype("V2")}:
+        raise AssertionError(f"opt_bf16 {name}: the moments are {kinds} on the device, {set(v2.values())} in the file")
+    resume_diff = _state_diff(resumed["state"], straight["state"], f"opt_bf16 {name}")
+    if resume_diff:
+        raise AssertionError(f"opt_bf16 {name}: resumed from the bf16 checkpoint differs from the straight run by "
+                             f"{resume_diff}")
+    gap = _free_run_gap(_float_tree(straight["state"]), _float_tree(arms["float32"]["state"]), lr, n_updates,
+                        f"opt_bf16 {name}")
+    print(f"opt_bf16 {name}: {OPT_ITERS} captured iterations at the app's defaults, bf16 moments against fp32: "
+          f"{straight['s_per_iter']:.5f} against {arms['float32']['s_per_iter']:.5f} s/iter (over the last "
+          f"{straight['timed']}); peak {_gib_text(straight['peak_bytes'])} against "
+          f"{_gib_text(arms['float32']['peak_bytes'])} (the step's own: {_gib_text(straight['own_bytes'])} against "
+          f"{_gib_text(arms['float32']['own_bytes'])}); params {gap['max_param_diff']:.3g} apart (Adam's bound "
+          f"{gap['param_bound']:.3g}); {len(v2)} moment leaves |V2 in the checkpoint; resumed at {half} against "
+          f"straight: max diff {resume_diff}", flush=True)
+    return dict(s_per_iter=straight["s_per_iter"], fp32_s_per_iter=arms["float32"]["s_per_iter"],
+                peak_gib=_gib(straight["peak_bytes"]), fp32_peak_gib=_gib(arms["float32"]["peak_bytes"]),
+                own_gib=_gib(straight["own_bytes"]), fp32_own_gib=_gib(arms["float32"]["own_bytes"]),
+                resume_diff=resume_diff, v2_leaves=len(v2), timed=straight["timed"], **gap,
+                **straight["counters"])
+
+
+def phase_opt_bf16(device, fl, out_dir: str, cfg: app.Config | None = None,
+                   cfg64: app64.Config | None = None) -> dict:
+    """``_opt_bf16_app`` for the flagship (``fl``, set up from ``cfg``, its
+    defaults) and the 64 px app at its defaults (``cfg64``)."""
+    cfg = cfg or app.Config()
+    out = {"flagship": _opt_bf16_app(device, "flagship", fl, app.make_step_fn, cfg, AcganState,
+                                     flagship_masks_per_iteration(cfg), cfg.N_CRITIC, cfg.LR,
+                                     (OPT_ITERS - 1) + cfg.N_CRITIC * OPT_ITERS, out_dir)}
+    cfg64 = cfg64 or app64.Config()
+    run64 = app64.setup(cfg64, device)
+    out["good64"] = _opt_bf16_app(device, "good64", run64, app64.make_step_fn, cfg64, GanState,
+                                  gan_masks_per_iteration(cfg64), 0, run64.trainer.cfg.lr,
+                                  (OPT_ITERS - 1) + cfg64.CRITIC_ITERS * OPT_ITERS, out_dir)
+    return out
+
+
+def phase_cli_remat_bf16(device, out_dir: str, flags: dict | None = None) -> dict:
+    """``python -m ctgan_tpu_torch <app> --REMAT 1 --OPT_STATE_DTYPE
+    bfloat16 --ITERS 3`` (the CLI's ``main`` in this process) for the
+    flagship (the committed ``scorer.npz`` copied in: no fit; the synthetic
+    set of ``DP_SYNTHETIC``), the 64 px and the 128 px apps at their
+    defaults: each trains, captured, with the remat mask count per
+    iteration, and writes bf16 moments (``|V2``) into its checkpoint.
+    ``flags``: more flags per app (a rehearsal's small widths)."""
+    from ctgan_tpu_torch.__main__ import main as cli
+
+    on_card, runs = torch.device(device).type == "cuda", {}
+    for name, per in (("flagship", flagship_masks_per_iteration(app.Config(), True)),
+                      ("good64", gan_remat_masks_per_iteration(app64.Config())),
+                      ("lsun128", gan_remat_masks_per_iteration(app128.Config()))):
+        run_dir = f"{out_dir}/cli_{name}"
+        os.makedirs(run_dir)
+        extra = []
+        if name == "flagship":
+            shutil.copy(JAX_RUN / "scorer.npz", run_dir)
+        else:
+            extra = ["--inception_every", "0"] if name == "good64" else []
+        extra += (flags or {}).get(name, [])
+        argv = [name, "--REMAT", "1", "--OPT_STATE_DTYPE", "bfloat16", "--ITERS", str(CLI_ITERS), "--save_every",
+                str(CLI_ITERS), "--out_dir", run_dir, *extra]
+        _zero_counters()
+        t0 = time.perf_counter()
+        with (_small_synthetic() if name == "flagship" else contextlib.nullcontext()):
+            if cli(["--platform", torch.device(device).type, *argv]) != 0:
+                raise AssertionError(f"cli_remat_bf16: {' '.join(argv)} failed")
+        seconds = time.perf_counter() - t0
+        counters = _counters()
+        if counters["launches"] != (per * CLI_ITERS if on_card else 0):
+            raise AssertionError(f"cli_remat_bf16 {name}: {counters['launches']} mask launches, expected "
+                                 f"{per} per iteration")
+        ckpt = f"{run_dir}/ckpt/ckpt_{CLI_ITERS}.npz"
+        moments = load_checkpoint(ckpt)["state"]["disc_opt"]["m"]
+        if {np.asarray(a).dtype for a in moments.values()} != {np.dtype("V2")}:
+            raise AssertionError(f"cli_remat_bf16 {name}: {ckpt} holds no bf16 moments")
+        runs[name] = dict(seconds=seconds, per_iteration=per, **counters)
+        print(f"cli_remat_bf16: python -m ctgan_tpu_torch {' '.join(argv[:8])}: {seconds:.1f} s, "
+              f"{per} masks per iteration, bf16 moments in ckpt_{CLI_ITERS}.npz", flush=True)
+    return runs
+
+
+def library_cases(device) -> dict:
+    """The rest of the op library, ``recalibrate_bn`` and the new
+    optimisers on ``device`` at small sizes, fp32, from seeded inputs:
+    each case's outputs and gradients as CPU tensors (float64), and each
+    bf16 moment's bits."""
+    from ctgan_tpu_torch import ops as lib
+    from ctgan_tpu_torch.train import optim, recalibrate_bn
+    from ctgan_tpu_torch.utils import debug
+
+    rng = np.random.default_rng(0)
+    t = lambda *shape, scale=1.0: torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+    out = {}
+
+    def record(name, fn, *leaves):
+        leaves = [x.requires_grad_(True) for x in leaves]
+        y = fn(*leaves)
+        ys = y if isinstance(y, (tuple, list)) else [y]
+        grads = torch.autograd.grad(sum((v.float() * torch.linspace(-1, 1, v.numel(), device=device).reshape(
+            v.shape)).sum() for v in ys if v.requires_grad), leaves, allow_unused=True)
+        out[name] = [v.detach().double().cpu() for v in ys] + [g.double().cpu() for g in grads if g is not None]
+
+    record("conv1d", lambda x, w, b, g: lib.conv1d(x, w, b, stride=2, mask_type=("b", 3), g=g),
+           t(2, 6, 11), t(6, 6, 5, scale=0.3), t(6), t(6).abs() + 0.5)
+    record("separable_conv2d", lambda x, d, p, b: lib.separable_conv2d(x, d, p, b, stride=2),
+           t(2, 3, 9, 9), t(3, 2, 3, 3, scale=0.3), t(5, 6, 1, 1, scale=0.3), t(5))
+    record("centered_softplus", lib.centered_softplus, t(4, 7, scale=3.0))
+    gru = {"G.Step.Gates.W": t(10, 8, scale=0.3), "G.Step.Gates.b": t(10), "G.Step.Candidate.W": t(5, 8, scale=0.3),
+           "G.Step.Candidate.b": t(5), "G.h0": t(5)}
+    names = list(gru)
+    record("gru", lambda x, *p: lib.gru(dict(zip(names, p)), "G", x), t(3, 6, 3), *gru.values())
+    rnn = {"R.Step.InputToHidden.W": t(5, 8, scale=0.3), "R.Step.InputToHidden.b": t(5), "R.h0": t(5)}
+    record("rnn", lambda x, *p: lib.rnn(dict(zip(list(rnn), p)), "R", x), t(3, 6, 3), *rnn.values())
+    mlp = {f"M.{k}.{w}": t(*s) for k, shapes in (("Input", ((8, 6), (8,))), ("Hidden0", ((8, 8), (8,))),
+                                                 ("Output", ((3, 8), (3,)))) for w, s in zip("Wb", shapes)}
+    record("mlp", lambda x, *p: lib.mlp(dict(zip(list(mlp), p)), "M", x, 3), t(4, 6), *mlp.values())
+    table = t(7, 4)
+    record("embedding", lambda tab: lib.embedding(tab, torch.tensor([0, 3, 3, 6], device=device)), table)
+    record("kl", lambda a, b, c, d: (lib.kl_gaussian_gaussian(a, b, c, d), lib.kl_unit_gaussian(a, b)),
+           t(4, 3), t(4, 3), t(4, 3), t(4, 3))
+    record("minibatch", lambda x, th, lw, b: lib.minibatch_discrimination(x, th, lw, b),
+           t(6, 5), t(5, 4, 3, scale=0.05), t(4, 3, scale=0.3), t(4))
+    scale, offset = t(4).abs() + 0.5, t(4)
+    x = t(6, 4, 5, 5, scale=2.0) + 1.0
+    y, state = lib.batchnorm(x, scale, offset, update_stats=True, state={}, name="BN")
+    record("batchnorm_modes", lambda s, o: (
+        lib.batchnorm(x, s, o, mode="moving", state=state, name="BN"),
+        lib.batchnorm(x, s, o, mode="blend", state=state, name="BN"),
+        lib.batchnorm(x, s, o, per_batch_axes=(2, 3))), scale, offset)
+    out["batchnorm_stats"] = [y.double().cpu()] + [v.double().cpu().reshape(-1) for v in state.values()]
+    w, b = t(8, 8, scale=0.5), t(8)
+    bn = {"M.BN.scale": scale.new_ones(8), "M.BN.offset": scale.new_zeros(8)}
+
+    def model(p, batch, bn_state, rand):
+        return lib.batchnorm(lib.linear(batch, w, b), p["M.BN.scale"], p["M.BN.offset"], update_stats=True,
+                             state=bn_state, name="M.BN")[1]
+
+    stats = recalibrate_bn(bn, model, [t(8, 8, scale=2.0) + 3.0 for _ in range(4)], Randomness(0, device))
+    out["recalibrate_bn"] = [v.double().cpu().reshape(-1) for v in stats.values()]
+    xin = t(64, 6)
+    lsuv = lib.lsuv_init({"L.W": t(8, 6, scale=3.0), "L.b": t(8)},
+                         lambda p, name, rand: lib.linear(xin, p["L.W"], p["L.b"]), ["L.W"], tol=0.01)
+    out["lsuv_init"] = [lsuv["L.W"].double().cpu()]
+    out["debug_stats"] = [v.double().cpu().reshape(1) for v in debug.stats(x).values()]
+    target = t(32)
+    for name, opt in (("nadam", optim.Nadam()), ("adamax", optim.Adamax()), ("momentum", optim.Momentum()),
+                      ("nesterov", optim.Momentum(nesterov=True)), ("sgd", optim.Sgd()),
+                      ("adam_bf16", optim.with_state_dtype(optim.Adam(1e-3, 0.5, 0.9), "bfloat16")),
+                      ("nadam_bf16", optim.with_state_dtype(optim.Nadam(), "bfloat16"))):
+        params = {"w": torch.linspace(-1, 1, 32, device=device)}
+        opt_state = opt.init(params)
+        for step in range(5):
+            opt.update({"w": params["w"] - target}, opt_state, params, step)
+        out[f"opt_{name}"] = [params["w"].double().cpu()] + [
+            (v["w"].view(torch.int16).cpu() if v["w"].dtype == torch.bfloat16 else v["w"].double().cpu())
+            for v in opt_state.values() if isinstance(v, dict)]
+    return out
+
+
+def _nccl_bf16_gather(device, out_dir: str) -> bool:
+    """A world-1 NCCL group's ``all_gather_cat`` of a bf16 tensor (the
+    model axis gathers bf16 moments for a checkpoint): the same bits."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(f"{out_dir}/store_bf16", 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        x = torch.randn(5, 3, device=device).to(torch.bfloat16)
+        got = collectives.all_gather_cat(x, 0, dist.group.WORLD, 1)
+        torch.cuda.synchronize(device)
+        return got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16), x.view(torch.int16))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_library_extra(device, out_dir: str) -> dict:
+    """``library_cases`` on the card (TF32 off) against the CPU: every
+    output and gradient within ``LIB_BOUND`` of the CPU's largest magnitude
+    in it; a bf16 moment's bits within 1 of the CPU's; and NCCL gathers
+    bf16 (``_nccl_bf16_gather``)."""
+    with strict_fp32(), precision_policy("float32"):
+        card, cpu = library_cases(device), library_cases("cpu")
+    worst, worst_bits = {}, 0
+    for name, want in cpu.items():
+        got = card[name]
+        if len(got) != len(want):
+            raise AssertionError(f"library_extra {name}: {len(got)} outputs on the card, {len(want)} on the CPU")
+        for g, w in zip(got, want):
+            if w.dtype == torch.int16:
+                worst_bits = max(worst_bits, int((g.int() - w.int()).abs().max()))
+                continue
+            gap = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            worst[name] = max(worst.get(name, 0.0), gap)
+    bad = {k: v for k, v in worst.items() if not v <= LIB_BOUND}
+    nccl_bf16 = _nccl_bf16_gather(device, out_dir)
+    if bad or worst_bits > 1 or not nccl_bf16:
+        raise AssertionError(f"library_extra: beyond {LIB_BOUND}: {bad}; bf16 moment bits apart {worst_bits}; NCCL "
+                             f"gathers bf16: {nccl_bf16}")
+    print(f"library_extra: {len(worst)} cases on the card against the CPU (fp32, TF32 off): largest gap "
+          f"{max(worst.values()):.3g} of an output's magnitude ({max(worst, key=worst.get)}); bf16 moments' bits "
+          f"{worst_bits} apart; NCCL all-gathers bf16 bit for bit", flush=True)
+    return {"worst": worst, "bf16_bits": worst_bits, "nccl_bf16": nccl_bf16}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3355,10 +3841,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
         dp_world1 = _phase("dp_world1", phase_dp_world1, device, out_dir)
         dp_two_ranks = _phase("dp_two_ranks", phase_dp_two_ranks, device, out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remat_") as out_dir:
+        with _small_synthetic():
+            fl = app.setup(app.Config(), device)
+        remat_equal = _phase("remat_equal", phase_remat_equal, device, fl)
+        opt_bf16 = _phase("opt_bf16", phase_opt_bf16, device, fl, out_dir)
+        del fl
+        torch.cuda.empty_cache()
+        remat_128 = _phase("remat_128", phase_remat_128, device)
+        cli_remat = _phase("cli_remat_bf16", phase_cli_remat_bf16, device, out_dir)
+        library_extra = _phase("library_extra", phase_library_extra, device, out_dir)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
             "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
             "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"], **lsun_runs["runs"],
-            "dp_world1": dp_world1, "dp_two_ranks": dp_two_ranks}
+            "dp_world1": dp_world1, "dp_two_ranks": dp_two_ranks, "remat_equal": remat_equal,
+            "remat_128": remat_128, **{f"opt_bf16_{k}": v for k, v in opt_bf16.items()},
+            **{f"cli_remat_bf16_{k}": v for k, v in cli_remat.items()}}
     launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
                 "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
     segment_launches = {"dropout_mask": sum(r.get("segment_launches", 0) for r in runs.values()),
@@ -3409,6 +3907,11 @@ def main() -> int:
     print(f"parallel_kernel: {json.dumps(parallel_kernel)}")
     print(f"dp_world1: {json.dumps(dp_world1)}")
     print(f"dp_two_ranks: {json.dumps(dp_two_ranks)}")
+    print(f"remat_equal: {json.dumps(remat_equal)}")
+    print(f"remat_128: {json.dumps(remat_128)}")
+    print(f"opt_bf16: {json.dumps(opt_bf16)}")
+    print(f"cli_remat_bf16: {json.dumps(cli_remat)}")
+    print(f"library_extra: {json.dumps(library_extra)}")
     print("inception_ref, the Inception-2015 scorer, aot_serve and the toys launch no dropout_mask and no "
           "philox_uniform (checked per phase; the toys have no dropout)")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):

@@ -16,8 +16,11 @@ stdev), ``crippled`` (the WGAN paper's G without batch norm, DCGAN D),
 ``multiplicative`` (gated G and D; ``models.dcgan``) and ``resnet101``
 (the 101-layer bottleneck ResNet, ``models.good64``, layer norm in D
 whatever the mode).  Only ``good``'s D drops out: the other archs launch no
-kernel.  Not ported yet, and refused: ``REMAT`` and a non-fp32
-``OPT_STATE_DTYPE`` (ROADMAP Queue 1 item 17).
+kernel.  ``REMAT`` recomputes each differentiated D pass in the backward
+(``train.remat``: the same masks, relaunched on their slots), and
+``OPT_STATE_DTYPE bfloat16`` stores the Adam moments in bf16
+(``train.optim.with_state_dtype``); a run resumes from a checkpoint written
+with the same ``OPT_STATE_DTYPE``.
 
 Precision as in the flagship app: ``BF16`` sets the bf16 policy
 (``core.precision``) process-wide when the run is on the card; on the CPU
@@ -132,14 +135,11 @@ def parse_config(argv=None) -> Config:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for what the port lacks, naming its
-    ROADMAP item; ``ValueError`` for an unknown ``ARCH`` or ``input``."""
+    """Raise ``ValueError`` for an unknown ``ARCH`` or ``input``."""
     if cfg.ARCH not in ARCHS:
         raise ValueError(f"unknown ARCH {cfg.ARCH!r}")
     if cfg.input not in INPUTS:
         raise ValueError(f"unknown input {cfg.input!r} (one of {INPUTS})")
-    if cfg.REMAT or cfg.OPT_STATE_DTYPE != "float32":
-        raise NotImplementedError("REMAT and OPT_STATE_DTYPE are not ported yet: ROADMAP Queue 1 item 17")
 
 
 def pick_arch(cfg: Config):
@@ -201,6 +201,7 @@ def setup(cfg: Config, device, pool: tuple | None = None) -> App64:
     gcfg = GanConfig(
         mode=cfg.MODE, batch_size=cfg.BATCH_SIZE, critic_iters=cfg.CRITIC_ITERS,
         lambda_gp=cfg.LAMBDA, lambda_ct=cfg.LAMBDA_2, factor_m=cfg.Factor_M, iters=cfg.ITERS,
+        remat=cfg.REMAT, opt_state_dtype=cfg.OPT_STATE_DTYPE,
     )
     tensors = {k: v.to(device) for k, v in from_jax_params(init_params(cfg)).items()}
     gparams, dparams, rest = split_params(tensors, "Generator", "Discriminator")

@@ -6,8 +6,13 @@
 
 The flags are the fields of :class:`Config`, under the JAX app's names and
 defaults, with these differences.  ``CUDA_DROPOUT`` takes the place of
-``PALLAS_DROPOUT`` and, like it, is on by default.  ``REMAT`` and
-``OPT_STATE_DTYPE`` are not ported.
+``PALLAS_DROPOUT`` and, like it, is on by default.  ``REMAT`` recomputes
+each differentiated D pass in the backward instead of keeping its
+activations (``train.remat``: the masks are relaunched on the same seed
+slots, so the numbers are those of the plain step); ``OPT_STATE_DTYPE
+bfloat16`` stores the Adam moments in bf16 (``train.optim.with_state_dtype``),
+and a run resumes from a checkpoint of either package written with the same
+``OPT_STATE_DTYPE``.
 
 Several processes (``torchrun``, one per GPU; gloo on the CPU with
 ``--platform cpu``): as the JAX app trains over every device it sees, the
@@ -111,6 +116,8 @@ class Config:
     BF16: bool = True
     CUDA_DROPOUT: bool = True
     CLEAN_PASS: bool = True
+    REMAT: bool = False
+    OPT_STATE_DTYPE: str = "float32"
     FUSE_CT_PASSES: bool = True
     FUSE_MEANPOOL: bool = True
     MODEL_AXIS: int = 1
@@ -158,7 +165,8 @@ def setup(cfg: Config, device, mesh=None) -> Flagship:
         factor_m=cfg.Factor_M, lr=cfg.LR, iters=cfg.ITERS, decay=cfg.DECAY,
         gen_bs_multiple=cfg.GEN_BS_MULTIPLE, conditional=cfg.CONDITIONAL, acgan=cfg.ACGAN,
         acgan_scale=cfg.ACGAN_SCALE, acgan_scale_g=cfg.ACGAN_SCALE_G,
-        fuse_ct_passes=cfg.FUSE_CT_PASSES, clean_pass=cfg.CLEAN_PASS,
+        fuse_ct_passes=cfg.FUSE_CT_PASSES, clean_pass=cfg.CLEAN_PASS, remat=cfg.REMAT,
+        opt_state_dtype=cfg.OPT_STATE_DTYPE,
     )
 
     def gen_fn(p, n, labels, rand, noise=None):

@@ -10,8 +10,10 @@ iterations, ``LAMBDA_2`` 2.0 (the GP's weight is the trainer's 10), Adam at
 ``DIM_D_8`` 1024 (``models.lsun128``), ``BF16`` on, ``FUSE_MEANPOOL`` off.
 ``CUDA_DROPOUT`` takes the place of ``PALLAS_DROPOUT`` and, like it, is on
 by default: D's three masks per pass, ``[64, 1024, 8, 8]`` each, come from
-the CUDA kernel, 63 per iteration.  Not ported yet, and refused: ``REMAT``
-and a non-fp32 ``OPT_STATE_DTYPE`` (ROADMAP Queue 1 item 17).
+the CUDA kernel, 63 per iteration (126 with ``REMAT``, which recomputes
+each differentiated D pass in the backward and relaunches its masks on
+their slots, ``train.remat``).  ``OPT_STATE_DTYPE bfloat16`` stores the
+Adam moments in bf16 (``train.optim.with_state_dtype``).
 
 Precision as in the other GAN apps: ``BF16`` sets the bf16 policy
 (``core.precision``) process-wide when the run is on the card; on the CPU
@@ -96,8 +98,6 @@ def parse_config(argv=None) -> Config:
 def check_supported(cfg: Config) -> None:
     if cfg.input not in ("hbm", "dir"):
         raise ValueError(f"unknown input {cfg.input!r} (one of ('hbm', 'dir'))")
-    if cfg.REMAT or cfg.OPT_STATE_DTYPE != "float32":
-        raise NotImplementedError("REMAT and OPT_STATE_DTYPE are not ported yet: ROADMAP Queue 1 item 17")
 
 
 def model_config(cfg: Config) -> lsun128.Lsun128Config:
@@ -128,7 +128,8 @@ def setup(cfg: Config, device, pool: np.ndarray | None = None) -> AppLsun:
     disc_fn = lambda p, x, rand: lsun128.discriminator(p, x, rand, cfg=mcfg, fuse_meanpool=cfg.FUSE_MEANPOOL)
     gcfg = GanConfig(
         mode="wgan-CT", batch_size=cfg.BATCH_SIZE, critic_iters=cfg.CRITIC_ITERS, lambda_ct=cfg.LAMBDA_2,
-        factor_m=cfg.Factor_M, lr=cfg.LR, lr_decay=cfg.DECAY, iters=cfg.ITERS, beta1=0.0,
+        factor_m=cfg.Factor_M, lr=cfg.LR, lr_decay=cfg.DECAY, iters=cfg.ITERS, beta1=0.0, remat=cfg.REMAT,
+        opt_state_dtype=cfg.OPT_STATE_DTYPE,
     )
     tensors = {k: v.to(device) for k, v in from_jax_params(lsun128.init_params(mcfg, cfg.seed)).items()}
     gparams, dparams, rest = split_params(tensors, "Generator", "Discriminator")

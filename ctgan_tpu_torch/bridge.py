@@ -17,7 +17,26 @@ dict of the fields of the JAX package's ``AcganState``
 ``avg_params``): the JAX package saves ``state._asdict()`` and restores
 ``type(state)(**blob["state"])``.
 An optimiser state is a dict of per-parameter moment dicts (Adam's ``m``
-and ``v``, RMSProp's ``ms`` and ``mom``) and scalars (Adam's ``t``).
+and ``v``, RMSProp's ``ms`` and ``mom``, Nadam's ``m`` and ``v``,
+Adamax's ``m`` and ``u``, momentum's ``mom``) and scalars (``t``).
+Moments stored in bf16 (``train.optim.with_state_dtype``) cross as their
+bits: a ``|V2`` array (``utils.checkpoint``) on the NumPy side, bf16 on
+the port's.
+
+The layouts by name and rank (:func:`_kind`):
+
+* ``.Filters``: a conv's, 4-D HWIO to OIHW, or ``conv1d``'s, 3-D ``[W,
+  in, out]`` to ``[out, in, W]``;
+* ``.W``: 2-D a linear weight, ``[in, out]`` to ``[out, in]`` (the
+  recurrent cells' ``.Gates.W``, ``.Candidate.W`` and ``.InputToHidden.W``,
+  an MLP's layers), 4-D a weight-normed conv's filter as ``.Filters``;
+* ``.PointwiseFilters``: a separable conv's 1x1 HWIO to OIHW;
+* ``.DepthwiseFilters``: ``[kh, kw, in, mult]`` to ``[in, mult, kh, kw]``,
+  which ``ops.conv.separable_conv2d`` reads as the grouped filter ``[in *
+  mult, 1, kh, kw]`` (a view); stored apart, ``in`` and ``mult`` stay
+  known, so the way back is exact;
+* everything else as it is (an ``.EmbeddingMatrix``, a minibatch layer's
+  3-D ``.theta``, biases, gains, norm parameters).
 """
 
 from __future__ import annotations
@@ -31,16 +50,24 @@ import torch
 from .train.trainer_acgan import AcganState
 from .train.trainer_gan import GanState
 from .train.trainer_semisup import SslState
-from .utils.checkpoint import device_get
+from .utils.checkpoint import as_tensor, device_get, is_bf16_bits
 
 __all__ = ["from_jax_params", "to_jax_params", "state_to_jax", "state_from_jax"]
 
 
 def _kind(name: str, ndim: int) -> str:
     if name.endswith(".Filters"):
+        if ndim not in (3, 4):
+            raise ValueError(f"{name}: conv filters are 3-D (conv1d) or 4-D (conv2d), got ndim={ndim}")
+        return "filters" if ndim == 4 else "filters1d"
+    if name.endswith(".PointwiseFilters"):
         if ndim != 4:
-            raise ValueError(f"{name}: only 2-D conv filters are bridged, got ndim={ndim}")
+            raise ValueError(f"{name}: a pointwise filter is 4-D, got ndim={ndim}")
         return "filters"
+    if name.endswith(".DepthwiseFilters"):
+        if ndim != 4:
+            raise ValueError(f"{name}: a depthwise filter is 4-D, got ndim={ndim}")
+        return "depthwise"
     if name.endswith(".W"):
         # a weight-normed conv's or transposed conv's W is a 4-D filter
         if ndim not in (2, 4):
@@ -49,16 +76,27 @@ def _kind(name: str, ndim: int) -> str:
     return "other"
 
 
+# the permutation of each layout kind; each but "filters" is its own inverse
+_TO_PORT = {"filters": (3, 2, 0, 1), "filters1d": (2, 1, 0), "depthwise": (2, 3, 0, 1), "weight": (1, 0)}
+_TO_JAX = dict(_TO_PORT, filters=(2, 3, 1, 0))
+
+
+def _leaf(value) -> torch.Tensor:
+    """A fresh CPU tensor of a JAX-side leaf: fp32, or bf16 for a bf16
+    leaf (``|V2`` bits)."""
+    a = np.asarray(value)
+    return as_tensor(np.array(a)) if is_bf16_bits(a) else torch.from_numpy(np.array(a, dtype=np.float32))
+
+
 def from_jax_params(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """JAX-layout arrays -> port-layout fp32 CPU tensors (contiguous)."""
+    """JAX-layout arrays -> port-layout fp32 (bf16 for a bf16 leaf) CPU
+    tensors (contiguous)."""
     out = {}
     for name, value in params.items():
-        t = torch.from_numpy(np.array(value, dtype=np.float32))
+        t = _leaf(value)
         kind = _kind(name, t.ndim)
-        if kind == "filters":
-            t = t.permute(3, 2, 0, 1)
-        elif kind == "weight":
-            t = t.t()
+        if kind != "other":
+            t = t.permute(*_TO_PORT[kind])
         out[name] = t.contiguous()
     return out
 
@@ -69,17 +107,15 @@ def _to_jax_layout(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor
     for name, t in params.items():
         t = t.detach()
         kind = _kind(name, t.ndim)
-        if kind == "filters":
-            t = t.permute(2, 3, 1, 0)
-        elif kind == "weight":
-            t = t.t()
+        if kind != "other":
+            t = t.permute(*_TO_JAX[kind])
         out[name] = t
     return out
 
 
 def to_jax_params(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Port-layout tensors (any device) -> JAX-layout NumPy arrays, copied
-    to the host in one batch."""
+    to the host in one batch (bf16 ones as ``|V2`` bits)."""
     return device_get(_to_jax_layout(params))
 
 

@@ -46,9 +46,10 @@ def matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return _apply(F.linear, x, weight)
 
 
-def conv(x: torch.Tensor, filters: torch.Tensor, *, stride: int = 1, padding=0) -> torch.Tensor:
-    """2-D convolution of NCHW ``x`` with OIHW ``filters``, no bias."""
-    return _apply(lambda a, b: F.conv2d(a, b, stride=stride, padding=padding), x, filters)
+def conv(x: torch.Tensor, filters: torch.Tensor, *, stride: int = 1, padding=0, groups: int = 1) -> torch.Tensor:
+    """2-D convolution of NCHW ``x`` with OIHW ``filters``, no bias
+    (``groups``: a grouped conv's, ``filters`` ``[O, I / groups, H, W]``)."""
+    return _apply(lambda a, b: F.conv2d(a, b, stride=stride, padding=padding, groups=groups), x, filters)
 
 
 def conv_transpose(x: torch.Tensor, filters: torch.Tensor, *, stride: int, padding: int) -> torch.Tensor:

@@ -45,11 +45,23 @@ split over the ranks (the fused CT pass ``[real; fake; real; fake]``: 4),
 runs under :meth:`Randomness.rows`; every other draw is one block.  The seed
 table is the same on every rank.  With ``world`` 1 every draw is whole, as
 before.
+
+A pass drawn again.  A recomputed pass (``train.remat``: D's forward run
+again in the backward, outside the step's code and its ``rows`` blocks)
+must draw what the pass drew the first time, and must not move the step's
+provider on.  :meth:`Randomness.mark` takes the provider's cursor at the
+start of the pass (the next seed slot, the next recorded draw of a static
+provider, the rows' blocks) and :meth:`Randomness.replay` gives a provider
+that hands out the same draws again from it: a mask relaunches its kernel on
+the same slot and segments (the same bits), a static provider's draw is the
+same view of its buffer.  A replay makes no new host draw: a generator's
+draws cannot be given twice, and a recomputed pass that asks for one raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 from typing import Callable, NamedTuple
 
@@ -59,7 +71,7 @@ import torch
 from ..kernels.dropout import dropout_mask_reference, philox_uniform, seed_table, whole
 from ..ops.dropout import make_mask
 
-__all__ = ["Randomness", "SEED_SLOTS", "StaticRandomness", "derive_seed", "host_to_device", "pass_rows",
+__all__ = ["Mark", "Randomness", "SEED_SLOTS", "StaticRandomness", "derive_seed", "host_to_device", "pass_rows",
            "row_segments"]
 
 # Philox draws a provider can hand out.  A flagship iteration takes 38 (33
@@ -127,6 +139,16 @@ def _rank_rows(make: Callable, rank: int, world: int) -> Callable:
     return local
 
 
+class Mark(NamedTuple):
+    """A provider's cursor (:meth:`Randomness.mark`): the next seed slot,
+    the next recorded draw (a static provider's; 0 elsewhere) and the
+    blocks of the pass's rows."""
+
+    slot: int
+    used: int
+    blocks: int
+
+
 def _seed_values(seed: int) -> np.ndarray:
     """``SEED_SLOTS`` uint32 Philox seeds of ``seed``.  One array draw gives
     what as many scalar draws give, so slot k holds the same seed whatever
@@ -153,7 +175,11 @@ class Randomness:
       version on any device.
     * ``rank`` and ``world``: the rank's rows of each draw (the module's
       docstring).
+    * :meth:`mark` and :meth:`replay`: the draws of a pass again (the
+      module's docstring).
     """
+
+    _replaying = False  # a replay's copy: re-issues draws, makes no host draw
 
     def __init__(self, seed: int, device, *, cuda_dropout: bool = True, rank: int = 0, world: int = 1):
         self.seed = seed
@@ -188,6 +214,26 @@ class Randomness:
         finally:
             self._blocks = before
 
+    def mark(self) -> Mark:
+        """The cursor at the start of a pass, for :meth:`replay`."""
+        return Mark(self._slot, getattr(self, "used", 0), self._blocks)
+
+    def replay(self, mark: Mark) -> "Randomness":
+        """A provider that hands out again the draws this one handed out
+        from ``mark`` on (Philox draws on the same slots and segments, a
+        static provider's views), apart from this one, which does not
+        move."""
+        again = copy.copy(self)
+        again._slot, again._blocks, again._replaying = mark.slot, mark.blocks, True
+        if hasattr(self, "used"):
+            again.used = mark.used
+        return again
+
+    def _no_host_draw(self, kind: str) -> None:
+        if self._replaying:
+            raise RuntimeError(f"a replayed pass asks for a host draw ({kind}); only Philox draws and a static "
+                               "provider's views can be drawn again")
+
     def _rows_kw(self, shape) -> dict:
         """The kernels' ``segments`` argument for a draw of local ``shape``:
         the rank's element ranges of the global draw, none for a whole
@@ -207,6 +253,7 @@ class Randomness:
     def _draw(self, kind: str, shape: tuple, dtype: torch.dtype, make: Callable) -> torch.Tensor:
         """``make`` filling a host tensor of ``shape`` (straight into pinned
         memory on the card), moved to the device."""
+        self._no_host_draw(kind)
         pinned = self.device.type == "cuda" and torch.cuda.is_available()
         out = torch.empty(shape, dtype=dtype, pin_memory=pinned)
         make(self._gen, None, out)
@@ -266,6 +313,7 @@ class Randomness:
         of its recorded step when it fills a later step, so ``fn`` takes
         what changes from step to step from its argument or from objects
         that outlive the step."""
+        self._no_host_draw("host value")
         return self._to(torch.as_tensor(fn(step)))
 
     def dropout_mask(self, shape, keep_prob, dtype: torch.dtype, device) -> torch.Tensor:
@@ -313,10 +361,12 @@ class _Recorder(Randomness):
         self.step, self.entries = step, []
 
     def _draw(self, kind, shape, dtype, make):
+        self._no_host_draw(kind)
         self.entries.append(_Entry(kind, tuple(shape), dtype, make))
         return super()._draw(kind, shape, dtype, make)
 
     def from_host(self, fn, step):
+        self._no_host_draw("host value")
         value = torch.as_tensor(fn(step))
         self.entries.append(_Entry("host", tuple(value.shape), value.dtype,
                                    _host_value(fn, tuple(value.shape), value.dtype)))

@@ -1,6 +1,6 @@
 """Convolutions (counterpart of ``conv2d``, ``conv_mean_pool2d``,
-``mean_pool_conv2d``, ``deconv2d`` and ``upsample_conv2d`` in
-``ctgan_tpu/ops/conv.py``).
+``mean_pool_conv2d``, ``deconv2d``, ``upsample_conv2d``, ``conv1d`` and
+``separable_conv2d`` in ``ctgan_tpu/ops/conv.py``).
 
 NCHW activations and OIHW filters; ``ctgan_tpu_torch.bridge`` converts the
 JAX package's HWIO filters.  Padding is TensorFlow's SAME, made explicit:
@@ -17,6 +17,12 @@ Every conv goes through ``core.matmul.conv`` (``conv_transpose``), which casts t
 (transformed) filter to the compute dtype of the precision policy; the bias
 is added afterwards in the conv output's dtype, as the JAX package adds it
 (``ctgan_tpu/ops/conv.py:118,193,247``).
+
+``conv1d`` takes NCW activations and ``[out, in, W]`` filters (the JAX
+package's NWC and ``[W, in, out]``, ``bridge``), with the reference's
+autoregressive masks and weight norm; it runs as a 2-D conv of height 1.
+``separable_conv2d`` is a depthwise conv (a grouped conv, one group per
+input channel, ``depth_multiplier`` filters each) and a 1x1 conv.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from ..core.matmul import conv as _conv
 from ..core.matmul import conv_transpose as _conv_transpose
 from .pool import depth_to_space
 
-__all__ = ["same_padding", "conv2d", "conv_mean_pool2d", "deconv2d", "mean_pool_conv2d", "upsample_conv2d"]
+__all__ = ["same_padding", "conv1d", "conv2d", "conv_mean_pool2d", "deconv2d", "mean_pool_conv2d",
+           "separable_conv2d", "upsample_conv2d"]
 
 
 def same_padding(size: int, filter_size: int, stride: int) -> tuple[int, int]:
@@ -59,15 +66,63 @@ def _add_bias(out: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     return out if b is None else out + b.to(out.dtype)[:, None, None]
 
 
+def _same_conv(x: torch.Tensor, w: torch.Tensor, stride, groups: int = 1) -> torch.Tensor:
+    """SAME conv of NCHW ``x``, no bias; ``stride`` an int or ``(sh, sw)``."""
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride
+    ph = same_padding(x.shape[-2], w.shape[-2], sh)
+    pw = same_padding(x.shape[-1], w.shape[-1], sw)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return _conv(x, w, stride=(sh, sw), padding=(ph[0], pw[0]), groups=groups)
+    return _conv(F.pad(x, (*pw, *ph)), w, stride=(sh, sw), groups=groups)
+
+
 def conv2d(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, stride: int = 1
 ) -> torch.Tensor:
     """2-D SAME conv."""
-    ph = same_padding(x.shape[-2], w.shape[-2], stride)
-    pw = same_padding(x.shape[-1], w.shape[-1], stride)
-    if ph[0] == ph[1] and pw[0] == pw[1]:
-        return _add_bias(_conv(x, w, stride=stride, padding=(ph[0], pw[0])), b)
-    return _add_bias(_conv(F.pad(x, (*pw, *ph)), w, stride=stride), b)
+    return _add_bias(_same_conv(x, w, stride), b)
+
+
+def _ar_mask_1d(filter_size: int, input_dim: int, output_dim: int, mask_type: str, n_channels: int) -> np.ndarray:
+    """The autoregressive mask of a 1-D filter, ``[out, in, W]``
+    (``ctgan_tpu/ops/conv.py:425-432``): the taps after the centre off, and
+    at the centre channel ``i`` of ``n_channels`` to ``j`` where ``i >= j``
+    (type "a") or ``i > j`` (type "b")."""
+    mask = np.ones((filter_size, input_dim, output_dim), dtype="float32")
+    center = filter_size // 2
+    mask[center + 1:, :, :] = 0.0
+    for i in range(n_channels):
+        for j in range(n_channels):
+            if (mask_type == "a" and i >= j) or (mask_type == "b" and i > j):
+                mask[center, i::n_channels, j::n_channels] = 0.0
+    return np.ascontiguousarray(mask.transpose(2, 1, 0))
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *, stride: int = 1,
+           mask_type: tuple | None = None, g: torch.Tensor | None = None) -> torch.Tensor:
+    """1-D SAME conv of NCW ``x`` with the ``[out, in, W]`` filter ``w``
+    (``ctgan_tpu/ops/conv.py:385-445``).  ``g``: weight norm, each output
+    filter scaled to norm ``g`` (no epsilon, as the JAX op); ``mask_type``:
+    ``("a" | "b", n_channels)``, applied after the weight norm.  The JAX
+    op's ``gain`` and ``he_init`` only shape its initialisation."""
+    if g is not None:
+        w = w * (g / torch.sqrt(w.square().sum(dim=(1, 2)))).reshape(-1, 1, 1)
+    if mask_type is not None:
+        mask = _ar_mask_1d(w.shape[-1], w.shape[1], w.shape[0], *mask_type)
+        w = w * torch.from_numpy(mask).to(w.device, w.dtype)
+    out = _same_conv(x.unsqueeze(2), w.unsqueeze(2), (1, stride)).squeeze(2)
+    return out if b is None else out + b.to(out.dtype)[:, None]
+
+
+def separable_conv2d(x: torch.Tensor, depthwise: torch.Tensor, pointwise: torch.Tensor,
+                     b: torch.Tensor | None = None, *, stride: int = 1) -> torch.Tensor:
+    """Depthwise-separable SAME conv (``ctgan_tpu/ops/conv.py:448-496``):
+    ``depthwise`` ``[in, mult, kh, kw]`` (``bridge``), run as the grouped
+    filter ``[in * mult, 1, kh, kw]``, one group per input channel, at
+    ``stride``; then the 1x1 ``pointwise`` ``[out, in * mult, 1, 1]``."""
+    cin, mult, kh, kw = depthwise.shape
+    out = _same_conv(x, depthwise.reshape(cin * mult, 1, kh, kw), stride, groups=cin)
+    return _add_bias(_same_conv(out, pointwise, 1), b)
 
 
 def conv_mean_pool2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Weight-initialisation distributions (own copy of ``ctgan_tpu/ops/init.py``).
 
-Every scheme is a uniform distribution with half-width ``stdev * sqrt(3)``,
-drawn on the host with NumPy from a ``np.random.Generator`` in parameter
-creation order, so a seed gives the same weights as the JAX package.
+Every scheme but the orthogonal one is a uniform distribution with
+half-width ``stdev * sqrt(3)`` (or a given half-width); all are drawn on the
+host with NumPy from a ``np.random.Generator`` in parameter creation order,
+so a seed gives the same weights as the JAX package.
 Inside a :class:`WeightsStdevOverride` block every draw uses the
 override's stdev instead (the DCGAN models build under 0.02).
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["WeightsStdevOverride", "conv_filter_stdev", "linear_initializer", "uniform_stdev"]
+__all__ = ["WeightsStdevOverride", "conv_filter_stdev", "linear_initializer", "orthogonal", "uniform_stdev"]
 
 
 class WeightsStdevOverride:
@@ -55,15 +56,35 @@ _LINEAR_STDEV = {
 }
 
 
+def orthogonal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Lasagne's orthogonal init (``ctgan_tpu/ops/init.py:58-66``): the
+    left or right singular vectors of a standard normal ``[shape[0],
+    prod(shape[1:])]`` matrix, whichever has that shape."""
+    if len(shape) < 2:
+        raise ValueError("orthogonal init needs a shape of at least 2 dimensions")
+    flat_shape = (shape[0], int(np.prod(shape[1:])))
+    a = rng.normal(0.0, 1.0, flat_shape)
+    u, _, v = np.linalg.svd(a, full_matrices=False)
+    q = u if u.shape == flat_shape else v
+    return q.reshape(shape).astype("float32")
+
+
 def linear_initializer(rng: np.random.Generator, input_dim: int, output_dim: int,
-                       initialization: str | None = None) -> np.ndarray:
-    """``[input_dim, output_dim]`` weights of the JAX package's linear menu:
-    glorot (the default, ``None``), "he", "lecun" or "glorot_he"."""
-    if initialization not in _LINEAR_STDEV:
-        raise ValueError(f"initialization {initialization!r} is not ported "
-                         f"(ported: {sorted(map(str, _LINEAR_STDEV))})")
-    stdev = _LINEAR_STDEV[initialization](input_dim, output_dim)
-    return uniform_stdev(rng, stdev, (input_dim, output_dim))
+                       initialization: str | tuple | None = None, gain: float = 1.0) -> np.ndarray:
+    """``[input_dim, output_dim]`` weights of the JAX package's linear menu
+    (``ctgan_tpu/ops/init.py:69-104``), times ``gain``: glorot (the
+    default, ``None``), "he", "lecun", "glorot_he", "orthogonal", or
+    ``("uniform", half_width)``."""
+    shape = (input_dim, output_dim)
+    if initialization == "orthogonal":
+        w = orthogonal(rng, shape)
+    elif isinstance(initialization, (tuple, list)) and initialization[0] == "uniform":
+        w = rng.uniform(low=-initialization[1], high=initialization[1], size=shape).astype("float32")
+    elif initialization in _LINEAR_STDEV:
+        w = uniform_stdev(rng, _LINEAR_STDEV[initialization](input_dim, output_dim), shape)
+    else:
+        raise ValueError(f"Invalid initialization: {initialization!r}")
+    return w * gain
 
 
 def conv_filter_stdev(

@@ -20,6 +20,12 @@ The state is updated in place.
 (``ctgan_tpu/train/trainer_acgan.py:275-305``).  Batch norm in G uses the
 statistics of the batch it is given, so samples depend on the batch size.
 
+``remat`` recomputes each differentiated D pass (the CT pair, the GP's
+interpolates, G's pass) in the backward, and ``opt_state_dtype`` stores
+the Adam moments in that dtype, as in ``train.trainer_gan``
+(``ctgan_tpu/train/trainer_acgan.py:100-107``).  A recomputed pass replays
+its draws with the rows' blocks it was drawn with (the fused CT pass: 4).
+
 ``spmd_hooks`` (``parallel.SpmdHooks``) run the substeps over a mesh of
 processes at the JAX trainer's hook points
 (``ctgan_tpu/train/trainer_acgan.py:194-240``), as in
@@ -44,7 +50,8 @@ from ..losses.gan import (
     gradient_penalty,
     wgan_losses,
 )
-from .optim import Adam
+from .optim import Adam, with_state_dtype
+from .remat import make_remat_disc
 from .schedules import linear_decay
 from .trainer_gan import GanTrainer
 
@@ -70,9 +77,11 @@ class AcganConfig:
     acgan_scale: float = 1.0
     acgan_scale_g: float = 0.1
     kp: tuple = (0.8, 0.5, 0.5)
+    remat: bool = False
     # one 2x-batch D pass for the CT pair; equal to two passes only because
     # this D has no batch-coupled norm (ctgan_tpu/train/trainer_acgan.py:62-65)
     fuse_ct_passes: bool = True
+    opt_state_dtype: str = "float32"
     clean_pass: bool = True
 
 
@@ -93,10 +102,12 @@ class AcganTrainer:
     norm_scope = GanTrainer.norm_scope
 
     def __init__(self, gen_fn: Callable, disc_fn: Callable, cfg: AcganConfig, spmd_hooks=None):
+        if cfg.remat:
+            disc_fn = make_remat_disc(disc_fn)
         self.gen_fn, self.disc_fn, self.cfg, self.spmd_hooks = gen_fn, disc_fn, cfg, spmd_hooks
         lr = linear_decay(cfg.lr, cfg.iters) if cfg.decay else cfg.lr
-        self.gen_optimizer = Adam(lr, cfg.beta1, cfg.beta2)
-        self.disc_optimizer = Adam(lr, cfg.beta1, cfg.beta2)
+        self.gen_optimizer = with_state_dtype(Adam(lr, cfg.beta1, cfg.beta2), cfg.opt_state_dtype)
+        self.disc_optimizer = with_state_dtype(Adam(lr, cfg.beta1, cfg.beta2), cfg.opt_state_dtype)
 
     def init_state(self, gen_params: dict, disc_params: dict) -> AcganState:
         for p in (*gen_params.values(), *disc_params.values()):

@@ -28,6 +28,12 @@ The state is updated in place.  :meth:`GanTrainer.dev_cost` and
 :meth:`~GanTrainer.sample` are the evaluation functions
 (``disc_cost_fn`` and ``sample_fn`` of the JAX trainer).
 
+``remat`` recomputes every differentiated D pass in the backward instead of
+keeping its activations (``train.remat``: the same masks, relaunched on
+their slots); ``opt_state_dtype`` stores both optimisers' moments in that
+dtype (``optim.with_state_dtype``), as the JAX trainer applies them
+(``ctgan_tpu/train/trainer_gan.py:87-93,120-123``).
+
 ``spmd_hooks`` (``parallel.SpmdHooks``) run the substeps over a mesh of
 processes at the JAX trainer's hook points
 (``ctgan_tpu/train/trainer_gan.py:191-234``): each substep computes with the
@@ -52,7 +58,15 @@ from ..losses.gan import (
     wgan_losses,
 )
 from ..ops.norm import batch_group
-from .optim import Adam, RMSProp, clip_grads_by_global_norm, clip_grads_by_value, clip_params_by_value
+from .optim import (
+    Adam,
+    RMSProp,
+    clip_grads_by_global_norm,
+    clip_grads_by_value,
+    clip_params_by_value,
+    with_state_dtype,
+)
+from .remat import make_remat_disc
 from .schedules import linear_decay
 
 __all__ = ["GanConfig", "GanState", "GanTrainer"]
@@ -91,17 +105,19 @@ class GanState:
 
 
 def _make_optimizers(cfg: GanConfig):
-    """(G's, D's) optimiser of ``cfg.mode``."""
+    """(G's, D's) optimiser of ``cfg.mode``, moments in ``cfg.opt_state_dtype``."""
     if cfg.mode in ("wgan-CT", "wgan-ct", "wgan-gp"):
         lr = linear_decay(cfg.lr, cfg.iters) if cfg.lr_decay else cfg.lr
-        return Adam(lr, cfg.beta1, cfg.beta2), Adam(lr, cfg.beta1, cfg.beta2)
-    if cfg.mode == "wgan":
-        return RMSProp(5e-5), RMSProp(5e-5)
-    if cfg.mode == "dcgan":
-        return Adam(2e-4, 0.5), Adam(2e-4, 0.5)
-    if cfg.mode == "lsgan":
-        return RMSProp(1e-4), RMSProp(1e-4)
-    raise ValueError(f"unknown mode {cfg.mode!r}")
+        pair = Adam(lr, cfg.beta1, cfg.beta2), Adam(lr, cfg.beta1, cfg.beta2)
+    elif cfg.mode == "wgan":
+        pair = RMSProp(5e-5), RMSProp(5e-5)
+    elif cfg.mode == "dcgan":
+        pair = Adam(2e-4, 0.5), Adam(2e-4, 0.5)
+    elif cfg.mode == "lsgan":
+        pair = RMSProp(1e-4), RMSProp(1e-4)
+    else:
+        raise ValueError(f"unknown mode {cfg.mode!r}")
+    return tuple(with_state_dtype(o, cfg.opt_state_dtype) for o in pair)
 
 
 class GanTrainer:
@@ -110,10 +126,7 @@ class GanTrainer:
 
     def __init__(self, gen_fn: Callable, disc_fn: Callable, cfg: GanConfig, spmd_hooks=None):
         if cfg.remat:
-            raise NotImplementedError("remat is not ported yet: ROADMAP Queue 1 item 17")
-        if cfg.opt_state_dtype != "float32":
-            raise NotImplementedError(
-                f"opt_state_dtype {cfg.opt_state_dtype!r} is not ported yet: ROADMAP Queue 1 item 17")
+            disc_fn = make_remat_disc(disc_fn)
         self.gen_fn, self.disc_fn, self.cfg, self.spmd_hooks = gen_fn, disc_fn, cfg, spmd_hooks
         self.gen_optimizer, self.disc_optimizer = _make_optimizers(cfg)
         self.is_ct = cfg.mode in ("wgan-CT", "wgan-ct")

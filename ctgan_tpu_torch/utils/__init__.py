@@ -2,7 +2,7 @@
 watchdog and sample grids (counterpart of ``ctgan_tpu/utils``)."""
 
 from .checkpoint import device_get, latest_checkpoint, load_checkpoint, save_checkpoint
-from .debug import assert_finite
+from .debug import assert_finite, check_grads_exist, print_stats, stats
 from .images import make_grid, save_images
 from .logging import MetricLogger
 from .profiler import StepTimer, profile_step
@@ -10,7 +10,7 @@ from .resume import guard_fresh_start, logged_progress, reap_stale_tmps, resolve
 from .watchdog import StepWatchdog
 
 __all__ = [
-    "MetricLogger", "StepTimer", "StepWatchdog", "assert_finite", "device_get",
-    "guard_fresh_start", "latest_checkpoint", "load_checkpoint", "logged_progress", "make_grid",
-    "profile_step", "reap_stale_tmps", "resolve_ssl_resume", "save_checkpoint", "save_images",
+    "MetricLogger", "StepTimer", "StepWatchdog", "assert_finite", "check_grads_exist", "device_get",
+    "guard_fresh_start", "latest_checkpoint", "load_checkpoint", "logged_progress", "make_grid", "print_stats",
+    "profile_step", "reap_stale_tmps", "resolve_ssl_resume", "save_checkpoint", "save_images", "stats",
 ]

@@ -13,6 +13,14 @@ the structure in a sidecar ``<path>.json``; those are still read.
 
 Tensors leave the device in one batched copy per dtype (:func:`device_get`),
 not one synchronising copy per tensor.
+
+bf16 leaves (optimiser moments under ``with_state_dtype``) are written as
+the JAX package writes them: NumPy has no bfloat16, so ``np.savez`` stores
+the JAX package's bf16 array as its raw 16-bit patterns, dtype ``|V2``, and
+``np.load`` gives back ``|V2``.  :func:`device_get` turns a bf16 tensor into
+that ``|V2`` array, and :func:`as_tensor` reads one (or a bfloat16 array of
+``ml_dtypes``, which is also 2-byte void to NumPy) back as a bf16 tensor:
+the same bits both ways.
 """
 
 from __future__ import annotations
@@ -26,10 +34,33 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["device_get", "save_checkpoint", "load_checkpoint", "latest_checkpoint"]
+__all__ = ["as_tensor", "device_get", "is_bf16_bits", "save_checkpoint", "load_checkpoint", "latest_checkpoint"]
 
 _SEP = "/"
 _STRUCT_KEY = "__structure_json__"
+BF16_BITS = np.dtype("V2")  # how NumPy stores a bf16 array: its raw 16-bit patterns
+
+
+def is_bf16_bits(a: np.ndarray) -> bool:
+    """Whether ``a`` holds bf16 values as 2-byte patterns (``|V2``, or the
+    bfloat16 of ``ml_dtypes``)."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and a.dtype.names is None
+
+
+def as_tensor(a) -> torch.Tensor:
+    """A CPU tensor of the array ``a`` (shared, or a copy where ``a`` is
+    read-only): a ``|V2`` (or ``ml_dtypes`` bfloat16) array as bf16 with its
+    bits, anything else as ``torch.from_numpy`` makes it."""
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a) if a.flags.writeable else np.array(a)
+    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) if is_bf16_bits(a) else torch.from_numpy(a)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's values; a bf16 tensor's bits as ``|V2``."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_BITS)
+    return t.numpy()
 
 
 def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
@@ -47,7 +78,8 @@ def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
 
 
 def device_get(tree: Any) -> Any:
-    """``tree`` with every tensor replaced by a NumPy array of its values.
+    """``tree`` with every tensor replaced by a NumPy array of its values
+(a bf16 tensor by its bits, ``|V2``).
 
     The tensors of one device and dtype are flattened, joined on their
     device and copied to the host together, so a state of a few hundred
@@ -63,7 +95,7 @@ def device_get(tree: Any) -> Any:
         flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx]).cpu()
         pieces = flat.split([tensors[i].numel() for i in idx])
         for i, piece in zip(idx, pieces):
-            host[i] = piece.reshape(tensors[i].shape).numpy()
+            host[i] = _numpy(piece.reshape(tensors[i].shape))
     leaves = iter(host)
     return _map_tensors(tree, lambda _: next(leaves))
 

@@ -1,12 +1,29 @@
-"""Non-finite tripwire (counterpart of ``assert_finite`` in
-``ctgan_tpu/utils/debug.py``)."""
+"""Diagnostics (counterpart of ``ctgan_tpu/utils/debug.py:23-55``): a
+tensor's summary statistics, the non-finite tripwire, and the reference's
+"[no grad!]" detector."""
 
 from __future__ import annotations
+
+from typing import Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["assert_finite"]
+__all__ = ["assert_finite", "check_grads_exist", "print_stats", "stats"]
+
+
+def stats(x: torch.Tensor) -> dict:
+    """Mean, standard deviation (population), min and max of ``x`` in fp32,
+    as 0-d tensors on its device (nothing waits for the device)."""
+    x = x.detach().float()
+    return {"mean": x.mean(), "std": x.std(unbiased=False), "min": x.min(), "max": x.max()}
+
+
+def print_stats(name: str, x: torch.Tensor) -> None:
+    """Print ``stats(x)`` in the JAX probe's format (waits for the
+    device)."""
+    s = {k: float(v) for k, v in stats(x).items()}
+    print(f"{name} mean={s['mean']:.4f} std={s['std']:.4f} min={s['min']:.4f} max={s['max']:.4f}")
 
 
 def _leaves(tree, path: str = ""):
@@ -32,3 +49,9 @@ def assert_finite(tree, name: str = "tree") -> None:
             bad.append(path)
     if bad:
         raise FloatingPointError(f"non-finite values in {name}: {bad}")
+
+
+def check_grads_exist(grads: Mapping[str, torch.Tensor]) -> list[str]:
+    """The names whose gradient is zero everywhere (the reference's
+    "[no grad!]" warning)."""
+    return [k for k, g in grads.items() if float(g.detach().abs().max()) == 0.0]

@@ -208,16 +208,28 @@ def test_app_trains_the_dcgan_family_archs(tmp_path, small_pool, arch, mode):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(ARCH="resnet101", REMAT=True), NotImplementedError, "item 17"),  # resnet101 is ported
     (dict(ARCH="nope"), ValueError, "unknown ARCH"),
-    (dict(DATA_DIR="/data", OPT_STATE_DTYPE="bfloat16"), NotImplementedError, "item 17"),  # DATA_DIR is ported
     (dict(input="tape"), ValueError, "unknown input"),  # native and dir are ported
-    (dict(REMAT=True), NotImplementedError, "item 17"),
-    (dict(OPT_STATE_DTYPE="bfloat16"), NotImplementedError, "item 17"),
 ])
 def test_app_refuses_what_is_not_ported(tmp_path, kw, err, match):
     with pytest.raises(err, match=match):
         app.main(cfg=_cfg(tmp_path, ITERS=1, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ARCH="resnet101", REMAT=True), dict(DATA_DIR="/data", OPT_STATE_DTYPE="bfloat16"), dict(REMAT=True),
+    dict(OPT_STATE_DTYPE="bfloat16"),
+])
+def test_app_takes_remat_and_bf16_moments(tmp_path, small_pool, kw):
+    """``REMAT`` and ``OPT_STATE_DTYPE`` are ported (they were refused until
+    then): two iterations and a checkpoint, then ``main`` again to 3, which
+    resumes from it; with bf16 moments the resumed state's are bf16."""
+    app.main(cfg=_cfg(tmp_path, ITERS=2, **kw), device="cpu")
+    state, records = app.main(cfg=_cfg(tmp_path, ITERS=3, **kw), device="cpu")
+    assert state.step == 3 and [r["iteration"] for r in records] == [2]
+    assert math.isfinite(records[-1]["disc_cost"])
+    want = torch.bfloat16 if kw.get("OPT_STATE_DTYPE") == "bfloat16" else torch.float32
+    assert {t.dtype for t in state.disc_opt["m"].values()} == {want}
 
 
 def test_app_runs_on_the_card_by_default(tmp_path):

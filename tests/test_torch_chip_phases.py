@@ -206,3 +206,81 @@ ptxas info    : Used 26 registers, used 0 barriers
     assert ("dropout_mask", (64, 512, 4, 4), torch.bfloat16) in shapes  # CIFAR-10's conv critic's
     assert {chip_smoke._sass_key(name, dtype) for name, _, dtype in shapes} == {
         "dropout_mask float32", "dropout_mask bfloat16", "philox_uniform"}
+
+
+# ------------------------------------------------------------------ remat, bf16 moments, the library's rest
+
+FLAGSHIP_SMALL = dict(DIM_G=16, DIM_D=16, BATCH_SIZE=4, N_CRITIC=2, n_examples=256)
+LSUN_TINY = dict(dim_g_4=32, dim_g_8=16, dim_g_16=8, dim_g_32=8, dim_g_64=8, dim_d_64=8, dim_d_32=8, dim_d_16=16,
+                 dim_d_8=32)
+
+
+@pytest.fixture
+def small_apps(monkeypatch, chip_smoke):
+    """The 64 px and 128 px apps on 32-image pools, the 128 px model at
+    tiny widths; the flagship on chip_smoke's small synthetic set."""
+    from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
+    from ctgan_tpu_torch.apps import wgan_lsun128 as app128
+    from ctgan_tpu_torch.data.synthetic import synthetic_images
+    from ctgan_tpu_torch.models import lsun128
+
+    small = lambda n, c, s, n_classes=10, seed=1234: synthetic_images(32, c, s, n_classes, seed)
+    monkeypatch.setattr(app64, "synthetic_images", small)
+    monkeypatch.setattr(app128, "synthetic_images", small)
+    monkeypatch.setattr(app128, "model_config", lambda cfg: lsun128.Lsun128Config(**LSUN_TINY))
+    with chip_smoke._small_synthetic():
+        yield app64, app128
+
+
+def test_remat_mask_counts_of_the_card_run(chip_smoke):
+    """81 masks an iteration with ``REMAT`` against 33 for the flagship;
+    141 against 63 for the 64 px and 128 px critics (tests/test_torch_remat.py
+    counts the same draws on the CPU)."""
+    from ctgan_tpu_torch.apps import ct_gan_64x64 as app64
+    from ctgan_tpu_torch.apps import wgan_lsun128 as app128
+
+    assert chip_smoke.flagship_masks_per_iteration(app.Config()) == 33
+    assert chip_smoke.flagship_masks_per_iteration(app.Config(), remat=True) == 81
+    assert chip_smoke.gan_remat_masks_per_iteration(app64.Config()) == 141
+    assert chip_smoke.gan_remat_masks_per_iteration(app128.Config()) == 141
+
+
+def test_remat_and_opt_bf16_phases_rehearse_on_cpu(chip_smoke, small_apps, tmp_path, capsys):
+    """``remat_equal``, ``remat_128`` and ``opt_bf16`` at small widths on the
+    CPU (every arm eager here): REMAT equal to plain (max diff 0), every
+    mask of an eager remat iteration the plain version's of its slot, the
+    bf16 arm's moments ``|V2`` and its resume equal to the straight run."""
+    app64, app128 = small_apps
+    cfg = app.Config(**FLAGSHIP_SMALL)
+    fl = app.setup(cfg, "cpu")
+    remat = chip_smoke.phase_remat_equal("cpu", fl, cfg)
+    assert remat["state_diff"] == remat["metric_diff"] == 0 and remat["launches"] == 0
+    assert remat["eager_masks"] == {"draws": 36, "slots": 15, "launches": 0}
+    cfg64 = app64.Config(DIM=8, BATCH_SIZE=4, CRITIC_ITERS=2)
+    opt = chip_smoke.phase_opt_bf16("cpu", fl, str(tmp_path), cfg, cfg64)
+    assert set(opt) == {"flagship", "good64"}
+    assert all(o["resume_diff"] == 0 and o["v2_leaves"] > 0 and o["peak_gib"] is None for o in opt.values())
+    lsun = chip_smoke.phase_remat_128("cpu", app128.Config(BATCH_SIZE=2, CRITIC_ITERS=2))
+    assert lsun["state_diff"] == 0
+    out = capsys.readouterr().out
+    assert "remat_equal: flagship" in out and "opt_bf16 good64" in out and "remat_128: 128 px" in out
+
+
+def test_cli_remat_bf16_phase_rehearses_on_cpu(chip_smoke, small_apps, tmp_path):
+    """The three apps through the CLI with ``--REMAT 1 --OPT_STATE_DTYPE
+    bfloat16`` at small widths, ``--platform cpu``."""
+    runs = chip_smoke.phase_cli_remat_bf16("cpu", str(tmp_path), flags={
+        "flagship": ["--DIM_G", "16", "--DIM_D", "16", "--BATCH_SIZE", "4", "--N_CRITIC", "2", "--n_examples", "256"],
+        "good64": ["--DIM", "8", "--BATCH_SIZE", "4", "--CRITIC_ITERS", "2"],
+        "lsun128": ["--BATCH_SIZE", "2", "--CRITIC_ITERS", "2"]})
+    assert set(runs) == {"flagship", "good64", "lsun128"} and all(r["launches"] == 0 for r in runs.values())
+
+
+def test_library_cases_run_on_cpu(chip_smoke):
+    """``library_extra``'s cases on the CPU: each gives outputs and
+    gradients, the bf16 moments as their bits (the card compares the same
+    cases against these)."""
+    cases = chip_smoke.library_cases("cpu")
+    assert {"conv1d", "separable_conv2d", "gru", "minibatch", "recalibrate_bn", "opt_nadam_bf16"} <= set(cases)
+    assert all(len(v) >= 1 and all(torch.isfinite(t.double()).all() for t in v) for v in cases.values())
+    assert cases["opt_adam_bf16"][1].dtype == torch.int16

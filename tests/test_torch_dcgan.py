@@ -112,8 +112,9 @@ def test_linear_initializer_menu_equals_jax(scheme):
 
 
 def test_initializer_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        port_init.linear_initializer(np.random.default_rng(0), 4, 4, "orthogonal")
+    # the whole menu is ported ("orthogonal" too: tests/test_torch_ops_extra.py); an unknown scheme is refused
+    with pytest.raises(ValueError, match="Invalid initialization"):
+        port_init.linear_initializer(np.random.default_rng(0), 4, 4, "xavier")
 
 
 def test_weights_stdev_override_equals_jax():

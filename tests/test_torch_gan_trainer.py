@@ -143,6 +143,7 @@ class Net:
     real_low: float  # reals are uniform in [real_low, 1]
     zero_grad: list
     grad_rtol: float = GRAD_RTOL
+    masks_per_pass: int = 3  # dropout masks of one D pass (G has none)
 
 
 def good64_net(mode: str) -> Net:
@@ -237,7 +238,8 @@ def check_iterations(mode: str, extra: dict, monkeypatch, net: Net | None = None
         if step == 0:
             states.append(step_fn.bump_step(s_d))
     d_passes = {"wgan-ct": 4, "wgan-CT": 4, "wgan-gp": 3}.get(mode, 2)  # real, fake (, CT pass) (, GP)
-    assert len(draws.dropouts) == 3 + 3 * d_passes  # each substep traced once: the same draws twice
+    # each substep traced once: the same draws twice
+    assert len(draws.dropouts) == net.masks_per_pass * (1 + d_passes)
     zero_grad = net.zero_grad
     bound = _step_bound(trainer)
 
@@ -260,6 +262,10 @@ def check_iterations(mode: str, extra: dict, monkeypatch, net: Net | None = None
         if "t" in state.disc_opt:
             assert state.gen_opt["t"] == float(after_d.gen_opt["t"]) == step
             assert state.disc_opt["t"] == float(after_d.disc_opt["t"])
+        if extra.get("opt_state_dtype", "float32") != "float32":  # the moments keep their storage dtype
+            for opt in (state.gen_opt, state.disc_opt):
+                assert {str(t.dtype) for v in opt.values() if isinstance(v, dict)
+                        for t in v.values()} == {f"torch.{extra['opt_state_dtype']}"}
         if mode == "wgan":
             assert max(float(p.abs().max()) for p in state.disc_params.values()) <= 0.01
         rand = draws.injected()
@@ -292,9 +298,8 @@ def test_sample_matches_jax():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(remat=True), NotImplementedError, "item 17"),
-    (dict(opt_state_dtype="bfloat16"), NotImplementedError, "item 17"),
     (dict(mode="wgan-xx"), ValueError, "unknown mode"),
+    (dict(opt_state_dtype="int8"), ValueError, "floating dtype"),
 ])
 def test_trainer_refuses_what_is_not_ported(kw, err, match):
     with pytest.raises(err, match=match):
@@ -302,3 +307,15 @@ def test_trainer_refuses_what_is_not_ported(kw, err, match):
     # spmd_hooks are ported (ctgan_tpu_torch.parallel): taken, not refused
     hooks = object()
     assert GanTrainer(None, None, GanConfig(), spmd_hooks=hooks).spmd_hooks is hooks
+
+
+@pytest.mark.parametrize("kw", [dict(remat=True), dict(opt_state_dtype="bfloat16")])
+def test_trainer_takes_remat_and_bf16_moments(kw):
+    """Both are ported (they were refused until then): D is wrapped for
+    recomputation (``train.remat``), the moments are stored in bf16
+    (``optim.with_state_dtype``)."""
+    trainer = GanTrainer(lambda *a: None, lambda *a: None, GanConfig(**kw))
+    assert hasattr(trainer.disc_fn, "recomputes") == kw.get("remat", False)
+    state = trainer.init_state({"g": torch.zeros(2)}, {"d": torch.zeros(3)})
+    want = torch.bfloat16 if "opt_state_dtype" in kw else torch.float32
+    assert state.disc_opt["m"]["d"].dtype == state.gen_opt["v"]["g"].dtype == want

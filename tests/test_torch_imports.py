@@ -40,6 +40,8 @@ def test_the_scan_sees_the_port():
     assert {"eval/graphdef.py", "eval/inception2015.py", "utils/aot.py", "__main__.py",
             "apps/onehot_toys.py"} <= names
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/spmd.py", "parallel/collectives.py"} <= names
+    assert {"train/remat.py", "train/recalibrate.py", "ops/recurrent.py", "ops/embedding.py", "ops/mlp.py",
+            "ops/stats.py", "ops/minibatch.py", "ops/lsuv.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -72,13 +72,23 @@ def test_app_runs_on_the_card_by_default(tmp_path):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(REMAT=True), NotImplementedError, "item 17"),
-    (dict(OPT_STATE_DTYPE="bfloat16"), NotImplementedError, "item 17"),
     (dict(input="native"), ValueError, "unknown input"),
 ])
 def test_app_refuses_what_is_not_ported(tmp_path, kw, err, match):
     with pytest.raises(err, match=match):
         app.main(cfg=_cfg(tmp_path, ITERS=1, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(REMAT=True), dict(OPT_STATE_DTYPE="bfloat16")])
+def test_app_takes_remat_and_bf16_moments(tmp_path, tiny, kw):
+    """``REMAT`` and ``OPT_STATE_DTYPE`` are ported (they were refused until
+    then): two iterations, then ``main`` again to 3 resumes; with bf16
+    moments the resumed state's are bf16."""
+    app.main(cfg=_cfg(tmp_path, ITERS=2, **kw), device="cpu")
+    state, records = app.main(cfg=_cfg(tmp_path, ITERS=3, **kw), device="cpu")
+    assert state.step == 3 and [r["iteration"] for r in records] == [2]
+    want = torch.bfloat16 if kw.get("OPT_STATE_DTYPE") == "bfloat16" else torch.float32
+    assert {t.dtype for t in state.disc_opt["m"].values()} == {want}
 
 
 def test_app_writes_checkpoints_and_resumes(tmp_path, tiny, capsys):

@@ -10,6 +10,7 @@ spawned processes start quickly.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -243,16 +244,17 @@ def _report(trainer_state, mesh, specs, metrics: list) -> dict:
 
 def train_steps(flavor: str, params: dict, real: np.ndarray, labels: np.ndarray | None = None, *,
                 mode: str = "wgan-CT", model: int = 1, iters: int = 2, seed: int = 3,
-                draws: list | None = None, start_step: int = 0) -> dict:
+                draws: list | None = None, start_step: int = 0, cfg_fields: dict | None = None) -> dict:
     """``iters`` iterations of the unconditional (``flavor`` "gan", MNIST
     conv nets) or the flagship trainer ("acgan") on the global stack
     ``real`` (``[K, B, D]``; ``labels`` ``[K, B]``), over the group's mesh
     with one device's semantics (``parallel.data_parallel``), or in one
     process without a mesh.  Draws: the port's own from ``seed``, or
     ``draws[i]`` (iteration ``i``'s global arrays) sliced to the rank's
-    rows.  ``start_step`` 1 starts where G's update is taken.  Returns the
-    full state (JAX layout), each iteration's metrics and the shapes this
-    rank stores."""
+    rows.  ``start_step`` 1 starts where G's update is taken.  ``cfg_fields``:
+    trainer config fields to set (``remat``, ``opt_state_dtype``).  Returns
+    the full state (JAX layout), each iteration's metrics and the shapes
+    this rank stores."""
     mesh = _mesh(model)
     k, batch = real.shape[0], real.shape[1]
     if flavor == "gan":
@@ -261,6 +263,7 @@ def train_steps(flavor: str, params: dict, real: np.ndarray, labels: np.ndarray 
     else:
         gen_fn, disc_fn, cfg, gen, disc = _flagship_parts(params, batch, k)
         cls = AcganTrainer
+    cfg = dataclasses.replace(cfg, **(cfg_fields or {}))
     if mesh is None:
         trainer, specs = cls(gen_fn, disc_fn, cfg), None
         state = trainer.init_state(gen, disc)

@@ -82,7 +82,8 @@ class JaxDraws:
         self._np = np.random.default_rng(seed)
         self.dropouts: list[tuple] = []   # (key, nhwc shape, kp)
         self.noises: list[np.ndarray] = []
-        self.stream_keys: dict[str, list] = {"labels": [], "gp": []}
+        # "remat": the JAX remat wrapper's per-pass base keys (the port replays its own draws)
+        self.stream_keys: dict[str, list] = {"labels": [], "gp": [], "remat": []}
         monkeypatch.setattr(model, "dropout", self._dropout)
         monkeypatch.setattr(model, "noise_input", self._noise_input)
         monkeypatch.setattr(jax_rng, "next_key", self._next_key)
@@ -138,6 +139,15 @@ class InjectedRandomness:
     def exhausted(self) -> bool:
         return not (self._masks or self._noises or self._label_keys or self._gp_keys or self._dequant)
 
+    def mark(self) -> dict:
+        """What is left to hand out (``train.remat``'s mark of a pass)."""
+        return dict(masks=list(self._masks), noises=list(self._noises), label_keys=list(self._label_keys),
+                    gp_keys=list(self._gp_keys), dequant=list(self._dequant))
+
+    def replay(self, mark: dict) -> "InjectedRandomness":
+        """A provider handing out again what was left at ``mark``."""
+        return InjectedRandomness(**mark)
+
     def noise(self, n, dim):
         z = self._noises.pop(0)
         assert z.shape == (n, dim)
@@ -182,12 +192,14 @@ def assert_grads_close(jax_grads: dict, port_grads: dict, what: str, rtol: float
     rounding (a bias feeding a batch norm) is not judged by its noise."""
     from ctgan_tpu_torch.bridge import to_jax_params
 
-    port_np = to_jax_params(port_grads)
+    from ctgan_tpu_torch.utils.checkpoint import as_tensor
+
+    port_np = to_jax_params(port_grads)  # bf16 moments come back as their bits (|V2)
     assert set(port_np) == set(jax_grads), what
     global_scale = max(float(np.max(np.abs(np.asarray(g)))) for g in jax_grads.values())
     for name, jg in jax_grads.items():
         jg = np.asarray(jg, np.float64)
-        pg = port_np[name].astype(np.float64)
+        pg = as_tensor(port_np[name]).double().numpy()
         assert jg.shape == pg.shape, (name, jg.shape, pg.shape)
         scale = max(float(np.max(np.abs(jg))), 1e-2 * global_scale)
         dev = float(np.max(np.abs(jg - pg))) / scale
