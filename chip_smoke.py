@@ -237,7 +237,21 @@ Phases, each printed with its seconds:
     probes), batch norm's moving and blend modes, ``recalibrate_bn`` and
     the new optimisers (with bf16 moments too) on the card against the
     CPU, fp32 with TF32 off, within 1e-4 (a bf16 moment's bits within 1);
-    a world-1 NCCL group all-gathers bf16 bit for bit.
+    a world-1 NCCL group all-gathers bf16 bit for bit; ``space_to_depth``
+    on the card equal to the CPU's, and a bf16 conv under
+    ``keep_bf16_activations(False)`` equal to its bf16 result cast to fp32;
+44. calibrate (after inception_score): ``python -m
+    ctgan_tpu_torch.eval.calibrate`` (its ``main`` in this process) on the
+    synthetic full-width graph at ``--n 200``: exit 0, no op gap, pool 2048
+    and 1008 classes; images/s of its score pass;
+45. entry (after library_extra): ``entry.entry()``, the flagship forward
+    (G at dim 128, batch 8, then D over real‖fake at keep 0.8 / 0.5 / 0.5),
+    with the mask kernel and with the plain mask (``cuda_dropout=False``),
+    cuDNN deterministic: equal (max diff 0), 3 mask launches;
+46. dryrun: ``entry.dryrun_multichip(torch.cuda.device_count())``, the
+    multi-device dry run, one NCCL process per card (a world-1 group on
+    one card): every rank's metrics finite, and its mask and uniform
+    launches, counted in the ranks, on the main path.
 
 Every app run above trains as the app does on the card: each iteration
 after one or two eager warm-up iterations is a replay of one captured CUDA
@@ -289,8 +303,9 @@ from ctgan_tpu_torch.apps.common import gan_batches, pick_scorer
 from ctgan_tpu_torch.bridge import from_jax_params, state_from_jax, state_to_jax
 from ctgan_tpu_torch.core import Randomness, precision_policy, split_params
 from ctgan_tpu_torch.core.rng import RING, SEED_SLOTS, pass_rows, row_segments
+from ctgan_tpu_torch import entry as entry_mod
 from ctgan_tpu_torch.data import DeviceSampler, cifar10, mnist, native, synthetic_images
-from ctgan_tpu_torch.eval import Inception2015, TrainedScorer, inception_score_from_probs
+from ctgan_tpu_torch.eval import Inception2015, TrainedScorer, calibrate, inception_score_from_probs
 from ctgan_tpu_torch.eval.inception2015 import strict_fp32
 from ctgan_tpu_torch.kernels import (
     SOURCES,
@@ -3747,13 +3762,119 @@ def phase_library_extra(device, out_dir: str) -> dict:
             worst[name] = max(worst.get(name, 0.0), gap)
     bad = {k: v for k, v in worst.items() if not v <= LIB_BOUND}
     nccl_bf16 = _nccl_bf16_gather(device, out_dir)
-    if bad or worst_bits > 1 or not nccl_bf16:
+    exact = library_exact_cases(device)
+    if bad or worst_bits > 1 or not nccl_bf16 or not all(exact.values()):
         raise AssertionError(f"library_extra: beyond {LIB_BOUND}: {bad}; bf16 moment bits apart {worst_bits}; NCCL "
-                             f"gathers bf16: {nccl_bf16}")
+                             f"gathers bf16: {nccl_bf16}; exact cases {exact}")
     print(f"library_extra: {len(worst)} cases on the card against the CPU (fp32, TF32 off): largest gap "
           f"{max(worst.values()):.3g} of an output's magnitude ({max(worst, key=worst.get)}); bf16 moments' bits "
-          f"{worst_bits} apart; NCCL all-gathers bf16 bit for bit", flush=True)
-    return {"worst": worst, "bf16_bits": worst_bits, "nccl_bf16": nccl_bf16}
+          f"{worst_bits} apart; NCCL all-gathers bf16 bit for bit; space_to_depth equals the CPU's and a bf16 conv "
+          "under keep_bf16_activations(False) equals its bf16 result cast to fp32", flush=True)
+    return {"worst": worst, "bf16_bits": worst_bits, "nccl_bf16": nccl_bf16, **exact}
+
+
+def library_exact_cases(device) -> dict[str, bool]:
+    """``space_to_depth`` on ``device`` equal to the CPU's, and a bf16 conv
+    under ``keep_bf16_activations(False)`` returning fp32 equal to the
+    ``True`` result cast up (cuDNN deterministic, so both calls take one
+    algorithm); the switch is restored."""
+    from ctgan_tpu_torch import ops as lib
+    from ctgan_tpu_torch.core import matmul as core_matmul
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2, 6, 8, 12)).astype(np.float32))
+    s2d = lib.space_to_depth(x.to(device), 2).cpu()
+    w = torch.from_numpy(rng.normal(size=(5, 6, 3, 3)).astype(np.float32)).to(device)
+    with _cudnn_deterministic(), precision_policy("bfloat16"):
+        on = core_matmul.conv(x.to(device), w, padding=1)
+        core_matmul.keep_bf16_activations(False)
+        try:
+            off = core_matmul.conv(x.to(device), w, padding=1)
+        finally:
+            core_matmul.keep_bf16_activations(True)
+    return {"space_to_depth_equal": torch.equal(s2d, lib.space_to_depth(x, 2)),
+            "keep_bf16_false_equal": on.dtype == torch.bfloat16 and off.dtype == torch.float32
+            and torch.equal(off, on.float())}
+
+
+# ------------------------------------------------------------------ entry, the dry run, the calibration tool
+
+ENTRY_MASKS = 3  # D's three dropouts
+CALIBRATE_N = 200
+ENTRY_TIMED = 5
+
+
+def phase_entry(device) -> dict:
+    """``entry.entry()`` with the mask kernel and with the plain mask, cuDNN
+    deterministic: outputs of the published shapes, finite and equal (max
+    diff 0); the kernel arm's first call is the main path, counted (3
+    launches on the card, none on the CPU); then ``ENTRY_TIMED`` calls of
+    each arm timed."""
+    arms = {}
+    with _cudnn_deterministic(), torch.no_grad():
+        for name, kernel in (("kernel", True), ("plain", False)):
+            fn, args = entry_mod.entry(device, cuda_dropout=kernel)
+            _zero_counters()
+            out = fn(*args)
+            counters = _counters()
+            _sync(device)()
+            t0 = time.perf_counter()
+            for _ in range(ENTRY_TIMED):
+                fn(*args)
+            _sync(device)()
+            arms[name] = dict(out=out, counters=counters, ms=(time.perf_counter() - t0) * 1e3 / ENTRY_TIMED)
+    got, want = arms["kernel"]["out"], arms["plain"]["out"]
+    shapes = [tuple(t.shape) for t in got]
+    diff = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    counters = arms["kernel"]["counters"]
+    masks = ENTRY_MASKS if torch.device(device).type == "cuda" else 0
+    if (shapes != [(16,), (16, 10)] or diff != 0.0 or not all(bool(torch.isfinite(t).all()) for t in got)
+            or counters["launches"] != masks or arms["plain"]["counters"]["launches"]):
+        raise AssertionError(f"entry: shapes {shapes}, kernel against plain mask {diff}, launches "
+                             f"{counters} / {arms['plain']['counters']}")
+    print(f"entry: the flagship forward (G at dim {entry_mod.ENTRY_DIM}, batch {entry_mod.ENTRY_BATCH}, then D over "
+          f"real and fake) with the mask kernel equals it with the plain mask (max diff {diff}), {masks} mask "
+          f"launches; {arms['kernel']['ms']:.2f} ms a call with the kernel, {arms['plain']['ms']:.2f} ms with the "
+          "plain mask", flush=True)
+    return dict(max_diff=diff, ms=arms["kernel"]["ms"], plain_ms=arms["plain"]["ms"], **counters)
+
+
+def phase_dryrun(device, n: int | None = None) -> dict:
+    """``entry.dryrun_multichip`` over ``n`` ranks (default: every visible
+    card; on the CPU, gloo ranks): the metrics finite and equal over the
+    ranks (checked by the dry run), and the ranks' launches: per rank and
+    mode 3 + 6 K masks and K uniforms on the card."""
+    dev = torch.device(device)
+    n = torch.cuda.device_count() if n is None else n
+    t0 = time.perf_counter()
+    out = entry_mod.dryrun_multichip(n, dev.type)
+    seconds = time.perf_counter() - t0
+    k = entry_mod.DRYRUN_CRITIC_ITERS
+    modes = 2 if "spmd" in out else 1
+    want = (n * modes * (3 + 6 * k), n * modes * k) if dev.type == "cuda" else (0, 0)
+    got = (out["launches"]["dropout_mask"], out["launches"]["philox_uniform"])
+    if got != want:
+        raise AssertionError(f"dryrun: launches (masks, uniforms) {got}, expected {want}")
+    print(f"dryrun: dryrun_multichip({n}) on {dev.type}, mesh data {out['mesh'][0]} x model {out['mesh'][1]}, "
+          f"{seconds:.2f} s (process start included); launches over the ranks {json.dumps(out['launches'])}",
+          flush=True)
+    return dict(seconds=seconds, mesh=out["mesh"], metrics=out["step"], launches=got[0], uniform_launches=got[1])
+
+
+def phase_calibrate(pb: Path, n: int = CALIBRATE_N, cpu: bool = False) -> dict:
+    """The calibration tool on the graph ``pb`` at ``--n n``: exit 0, no op
+    gap, pool 2048 and 1008 classes; its JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = calibrate.main(["--pb", str(pb), "--n", str(n)] + (["--cpu"] if cpu else []))
+    print(buf.getvalue(), end="")
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if code != 0 or result["gaps"] or (result["pool_dim"], result["classes"]) != (2048, 1008):
+        raise AssertionError(f"calibrate: exit {code}, {result}")
+    print(f"calibrate: {result['nodes']} nodes, {result['ops']} ops, no gap, pool {result['pool_dim']}, "
+          f"{result['classes']} classes; IS {result['is_mean']:.4f} over {n} images at "
+          f"{result['images_per_s']:.1f} images/s", flush=True)
+    return result
 
 
 
@@ -3804,6 +3925,7 @@ def main() -> int:
         finally:
             del os.environ["CTGAN_INCEPTION_PB"]
         inception = _phase("inception_score", phase_inception_score, device, pb, train)
+        calibrated = _phase("calibrate", phase_calibrate, pb)
         scorer_fit_s = _phase("scorer_fit", phase_scorer_fit, device, cfg)
         resume = _phase("train_resume", phase_resume, device, cfg)
         fp32_cfg = dataclasses.replace(cfg, BF16=False, out_dir=f"{out_dir}/fp32")
@@ -3851,12 +3973,14 @@ def main() -> int:
         remat_128 = _phase("remat_128", phase_remat_128, device)
         cli_remat = _phase("cli_remat_bf16", phase_cli_remat_bf16, device, out_dir)
         library_extra = _phase("library_extra", phase_library_extra, device, out_dir)
+    entry_run = _phase("entry", phase_entry, device)
+    dryrun = _phase("dryrun", phase_dryrun, device)
     runs = {"train": train, "resume": resume, "train_fp32": train_fp32, "train_norm_d": norm_d,
             "jax_checkpoint": jax_ckpt, "train64": train64, "train64_resume": resume64,
             "train64_fp32": train64_fp32, **dcgan_runs["runs"], **ssl_runs["runs"], **lsun_runs["runs"],
             "dp_world1": dp_world1, "dp_two_ranks": dp_two_ranks, "remat_equal": remat_equal,
             "remat_128": remat_128, **{f"opt_bf16_{k}": v for k, v in opt_bf16.items()},
-            **{f"cli_remat_bf16_{k}": v for k, v in cli_remat.items()}}
+            **{f"cli_remat_bf16_{k}": v for k, v in cli_remat.items()}, "entry": entry_run, "dryrun": dryrun}
     launches = {"dropout_mask": sum(r["launches"] for r in runs.values()),
                 "philox_uniform": sum(r["uniform_launches"] for r in runs.values())}
     segment_launches = {"dropout_mask": sum(r.get("segment_launches", 0) for r in runs.values()),
@@ -3912,6 +4036,9 @@ def main() -> int:
     print(f"opt_bf16: {json.dumps(opt_bf16)}")
     print(f"cli_remat_bf16: {json.dumps(cli_remat)}")
     print(f"library_extra: {json.dumps(library_extra)}")
+    print(f"calibrate: {json.dumps(calibrated)}")
+    print(f"entry: {json.dumps(entry_run)}")
+    print(f"dryrun: {json.dumps(dryrun)}")
     print("inception_ref, the Inception-2015 scorer, aot_serve and the toys launch no dropout_mask and no "
           "philox_uniform (checked per phase; the toys have no dropout)")
     for name, key in (("dropout_mask", "launches"), ("philox_uniform", "uniform_launches")):

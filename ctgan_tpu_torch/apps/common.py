@@ -25,16 +25,22 @@ __all__ = [
 ]
 
 
+# a field's other flag: the JAX apps' name of the mask kernel's switch
+# (docs/MIGRATION.md's performance knobs)
+FLAG_ALIASES = {"CUDA_DROPOUT": "PALLAS_DROPOUT"}
+
+
 def parse_config(cls, argv=None):
-    """An instance of the dataclass ``cls`` from ``--FIELD value`` flags;
-    booleans take 1/true/yes."""
+    """An instance of the dataclass ``cls`` from ``--FIELD value`` flags
+    (``--PALLAS_DROPOUT`` sets ``CUDA_DROPOUT``); booleans take
+    1/true/yes."""
     parser = argparse.ArgumentParser(description=cls.__doc__)
     for f in dataclasses.fields(cls):
+        flags = ["--" + f.name] + (["--" + FLAG_ALIASES[f.name]] if f.name in FLAG_ALIASES else [])
         if f.type in ("bool", bool):
-            parser.add_argument("--" + f.name, default=f.default,
-                                type=lambda s: s.lower() in ("1", "true", "yes"))
+            parser.add_argument(*flags, default=f.default, type=lambda s: s.lower() in ("1", "true", "yes"))
         else:
-            parser.add_argument("--" + f.name, type=type(f.default), default=f.default)
+            parser.add_argument(*flags, type=type(f.default), default=f.default)
     return cls(**vars(parser.parse_args(argv)))
 
 

@@ -6,9 +6,10 @@ Under fp32 both operands are promoted to their common type, at least fp32
 (an activation that is bf16 is promoted, as ``jnp.dot`` promotes it; a
 float64 run stays float64), and so is the result.  Under bf16 both
 operands are cast to bf16; the card accumulates in fp32 and rounds the
-result to bf16 once, and the result stays bf16 (the JAX package's
-default ``keep_bf16_activations(True)``; nothing in the port casts it back).
-Biases are added by the callers, in the result's dtype.
+result to bf16 once, and the result stays bf16 (the default,
+``keep_bf16_activations(True)``); under ``keep_bf16_activations(False)``
+that bf16 result is cast to fp32.  Biases are added by the callers, in the
+result's dtype.
 
 fp32 here means what PyTorch runs by default on the card: cuDNN computes
 fp32 convolutions in TF32, and matrix products stay in full fp32.
@@ -21,7 +22,18 @@ import torch.nn.functional as F
 
 from .precision import compute_dtype
 
-__all__ = ["conv", "conv_transpose", "matmul"]
+__all__ = ["conv", "conv_transpose", "keep_bf16_activations", "matmul"]
+
+_KEEP_BF16_ACT = [True]
+
+
+def keep_bf16_activations(enable: bool) -> None:
+    """Whether a bf16 product or convolution returns bf16 (True, the
+    default) or its bf16-rounded value as fp32 (False), as the JAX
+    package's switch (``ctgan_tpu/core/matmul.py:35-41``, ``_out_dtype``).
+    Process-wide; read when an op runs, so a step captured in a CUDA graph
+    keeps the setting it was captured under."""
+    _KEEP_BF16_ACT[0] = bool(enable)
 
 
 def _fp32_operands(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
@@ -37,8 +49,10 @@ def _apply(op, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         # bf16 operands, fp32 accumulation, one rounding of the result: what
         # the card does.  PyTorch's CPU bf16 convolution accumulates its
         # double backward in bf16 and loses it (tests/test_torch_bf16.py).
-        return op(x.to(dt).float(), w.to(dt).float()).to(dt)
-    return op(x.to(dt), w.to(dt))
+        out = op(x.to(dt).float(), w.to(dt).float()).to(dt)
+    else:
+        out = op(x.to(dt), w.to(dt))
+    return out if _KEEP_BF16_ACT[0] else out.float()
 
 
 def matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

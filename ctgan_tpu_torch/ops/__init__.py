@@ -27,7 +27,7 @@ from .minibatch import minibatch_discrimination
 from .mlp import mlp
 from .noise import gaussian_noise
 from .norm import batchnorm, cond_batchnorm, cond_layernorm, layernorm
-from .pool import depth_to_space, global_mean_pool, mean_pool, upsample_nearest
+from .pool import depth_to_space, global_mean_pool, mean_pool, space_to_depth, upsample_nearest
 from .recurrent import gru, gru_step, rnn, rnn_step
 from .stats import kl_gaussian_gaussian, kl_unit_gaussian
 from .weightnorm import applied_weight, l2_dense, wn_conv2d, wn_deconv2d, wn_dense
@@ -37,6 +37,6 @@ __all__ = [
     "conv_mean_pool2d", "deconv2d", "depth_to_space", "dropout", "embedding", "gated_nonlinearity", "gaussian_noise",
     "global_mean_pool", "gru", "gru_step", "kl_gaussian_gaussian", "kl_unit_gaussian", "l2_dense", "layernorm",
     "leaky_relu", "linear", "log_sum_exp", "lsuv_init", "make_mask", "mean_pool", "mean_pool_conv2d",
-    "minibatch_discrimination", "mlp", "rnn", "rnn_step", "same_padding", "separable_conv2d", "softplus",
+    "minibatch_discrimination", "mlp", "rnn", "rnn_step", "same_padding", "separable_conv2d", "softplus", "space_to_depth",
     "upsample_conv2d", "upsample_nearest", "wn_conv2d", "wn_deconv2d", "wn_dense",
 ]

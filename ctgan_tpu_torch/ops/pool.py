@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["depth_to_space", "global_mean_pool", "mean_pool", "upsample_nearest"]
+__all__ = ["depth_to_space", "global_mean_pool", "mean_pool", "space_to_depth", "upsample_nearest"]
 
 
 def mean_pool(x: torch.Tensor) -> torch.Tensor:
@@ -33,3 +33,14 @@ def depth_to_space(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     c = cr // (block * block)
     x = x.reshape(n, block, block, c, h, w).permute(0, 3, 4, 1, 5, 2)
     return x.reshape(n, c, h * block, w * block)
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """TF's space-to-depth on NCHW (``ctgan_tpu/ops/pool.py:36-40``), the
+    inverse of :func:`depth_to_space`: channel ``c`` of pixel ``(h * block
+    + i, w * block + j)`` goes to channel ``(i * block + j) * C + c`` of
+    pixel ``(h, w)``.  ``F.pixel_unshuffle`` writes channel ``c * block**2 +
+    i * block + j`` instead, so it is not used."""
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // block, block, w // block, block).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, block * block * c, h // block, w // block)

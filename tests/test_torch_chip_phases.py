@@ -284,3 +284,22 @@ def test_library_cases_run_on_cpu(chip_smoke):
     assert {"conv1d", "separable_conv2d", "gru", "minibatch", "recalibrate_bn", "opt_nadam_bf16"} <= set(cases)
     assert all(len(v) >= 1 and all(torch.isfinite(t.double()).all() for t in v) for v in cases.values())
     assert cases["opt_adam_bf16"][1].dtype == torch.int16
+
+
+# ------------------------------------------------------------------ entry, the dry run, the calibration tool
+
+
+def test_entry_calibrate_and_exact_library_phases_rehearse_on_cpu(chip_smoke, tmp_path, capsys):
+    """``entry`` (kernel arm against plain arm: both the plain mask here, no
+    launch counted), ``calibrate`` on the reduced synthetic graph with
+    ``--cpu``, and ``library_extra``'s exact cases."""
+    import torch_inception_graph as tig
+
+    out = chip_smoke.phase_entry("cpu")
+    assert out["max_diff"] == 0.0 and out["launches"] == 0
+    pb = tmp_path / "classify_image_graph_def.pb"
+    tig.write_inception_graph(pb, blocks=tig.REDUCED_BLOCKS)
+    with pytest.raises(AssertionError, match="calibrate"):  # the reduced graph is not 2048 x 1008
+        chip_smoke.phase_calibrate(pb, n=8, cpu=True)
+    assert "op coverage OK" in capsys.readouterr().out
+    assert chip_smoke.library_exact_cases("cpu") == {"space_to_depth_equal": True, "keep_bf16_false_equal": True}

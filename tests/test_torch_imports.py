@@ -1,7 +1,8 @@
 """The port runs where JAX is not installed: no module of
 ``ctgan_tpu_torch``, not ``chip_smoke.py``, not the graph writer it
 imports (``tests/torch_inception_graph.py``) and not the processes the
-parallel tests spawn (``tests/torch_parallel_workers.py``) imports ``jax``,
+parallel and entry tests spawn (``tests/torch_parallel_workers.py``,
+``tests/torch_entry_workers.py``) imports ``jax``,
 ``jaxlib`` or the JAX package ``ctgan_tpu``."""
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "ctgan_tpu"}
 EXTRA = [ROOT / "tests" / "torch_inception_graph.py", ROOT / "tests" / "torch_parallel_workers.py",
-         ROOT / "chip_smoke.py"]
+         ROOT / "tests" / "torch_entry_workers.py", ROOT / "chip_smoke.py"]
 FILES = sorted((ROOT / "ctgan_tpu_torch").rglob("*.py")) + EXTRA
 
 
@@ -42,6 +43,8 @@ def test_the_scan_sees_the_port():
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/spmd.py", "parallel/collectives.py"} <= names
     assert {"train/remat.py", "train/recalibrate.py", "ops/recurrent.py", "ops/embedding.py", "ops/mlp.py",
             "ops/stats.py", "ops/minibatch.py", "ops/lsuv.py"} <= names
+    assert {"data/aux_loaders.py", "utils/experiments.py", "utils/random_search.py", "utils/handwriting.py",
+            "entry.py", "parallel/launch.py", "eval/calibrate.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
